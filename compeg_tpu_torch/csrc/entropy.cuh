@@ -1,0 +1,143 @@
+// Shared device code of the two decode kernels (csrc/decode.cu): the
+// per-thread bit reader, canonical Huffman symbol decode and the MCU
+// coefficient loop.
+//
+// Replaces compeg_tpu/ops/entropy.py decode_mcu_coefficients (:268) with
+// make_symbol_decoder (:229), decode_dc (:253) and _refill / _consume /
+// _decode_code / _extend (:113-219). The Pallas code runs 1024 segments in
+// lockstep lanes and so needs select trees for the word and value fetch and
+// a symbol-synchronous masked commit loop. Here one thread owns one restart
+// segment and walks its MCUs in order, carrying its bit window and its DC
+// predictors in registers; words, tables and values are plain loads.
+//
+// Semantics kept from the reference kernel (each is checked by the tests):
+//  * words are MSB-first; the word index is clamped to the row's last word,
+//    so lookahead past the end re-reads it and never leaves the row;
+//  * code length = 1 + #{j in 1..max_len-1 : c16 >= limits[j]}, ordinal
+//    k = clip((c16 >> (16 - ln)) + delta[ln], 0, num_values - 1): an invalid
+//    code decodes to a clipped symbol and never faults;
+//  * DC magnitude bits s = min(value, 15), AC s = value & 15; code and
+//    magnitude bits (ln + s <= 31) are consumed together;
+//  * AC: newpos = pos + rrrr + 1, the coefficient is written only when
+//    s != 0 and newpos <= 63; only EOB (s == 0, rrrr == 0) ends the block
+//    early, ZRL and reserved (run, 0) symbols advance and write nothing; the
+//    block also ends at pos >= 63, so every thread terminates on any bits.
+#pragma once
+
+#include <cstdint>
+
+// Mirror of compeg_tpu_torch.ops._build.DecodeParams (all int32).
+struct DecodeParams {
+  int nseg;        // restart segments (rows) to decode
+  int words;       // u32 words per row (W >= 1)
+  int ri;          // MCUs per restart interval
+  int total_mcus;  // MCUs in the frame; the last segment may be short
+  int dus;         // data units per MCU (1..6)
+  int ncomp;       // components (1 or 3)
+  int du_to_comp[6];
+  int width;       // frame size in pixels (fused kernel only)
+  int height;
+  int width_mcus;
+  int rgb;         // samples are already RGB (component IDs R, G, B)
+  int comp_h[3];
+  int comp_v[3];
+  int comp_slot[3];  // first DU slot of each component in the MCU
+};
+
+// One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:
+// limits[17], delta[17], max_len, num_values, values[256].
+constexpr int TAB_LIMITS = 0;
+constexpr int TAB_DELTA = 17;
+constexpr int TAB_MAX_LEN = 34;
+constexpr int TAB_NUM_VALUES = 35;
+constexpr int TAB_VALUES = 36;
+constexpr int TAB_INTS = 36 + 256;
+constexpr int MAX_TABLE_INTS = 3 * 2 * TAB_INTS;  // [comp][dc, ac][TAB_INTS]
+
+// MCUs segment `seg` holds: min(ri, total_mcus - seg * ri), 0 past the end.
+__device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg) {
+  if (seg >= p.nseg) return 0;
+  long long left = (long long)p.total_mcus - (long long)seg * p.ri;
+  return left < p.ri ? (int)left : p.ri;
+}
+
+struct BitReader {
+  const uint32_t* row;
+  int last;       // index of the row's last word
+  int widx;       // next word to fetch (unclamped)
+  int nbits;      // valid bits at the top of `win`, 0..63
+  uint64_t win;   // MSB-aligned window; bits below `nbits` are zero
+
+  __device__ __forceinline__ void init(const uint32_t* r, int words) {
+    row = r;
+    last = words - 1;
+    widx = 0;
+    nbits = 0;
+    win = 0;
+  }
+
+  // Top the window up to >= 32 valid bits. nbits < 32 here, so the shift
+  // is 1..32 and never reaches 64.
+  __device__ __forceinline__ void refill() {
+    if (nbits < 32) {
+      uint32_t w = __ldg(row + (widx < last ? widx : last));
+      win |= (uint64_t)w << (32 - nbits);
+      ++widx;
+      nbits += 32;
+    }
+  }
+};
+
+// T.81 EXTEND: an s-bit magnitude to its signed value; s == 0 gives 0.
+__device__ __forceinline__ int extend(int v, int s) {
+  int vt = (1 << s) >> 1;
+  return v < vt ? v - (1 << s) + 1 : v;
+}
+
+// Decode one symbol with table `tab`; returns the symbol value and sets the
+// magnitude width `s` (DC: min(value, 15), AC: value & 15) and its raw bits.
+__device__ __forceinline__ int decode_symbol(BitReader& br, const int* tab,
+                                             bool dc, int& s, int& mag) {
+  br.refill();
+  const int c16 = (int)(br.win >> 48);
+  const int max_len = tab[TAB_MAX_LEN];
+  int ln = 1;
+  for (int j = 1; j < max_len; ++j) ln += c16 >= tab[TAB_LIMITS + j];
+  int k = (c16 >> (16 - ln)) + tab[TAB_DELTA + ln];
+  k = max(0, min(k, tab[TAB_NUM_VALUES] - 1));
+  const int value = tab[TAB_VALUES + k];
+  s = dc ? min(value, 15) : (value & 15);
+  const int n = ln + s;  // 1..31 <= nbits - 1
+  mag = s ? (int)((br.win >> (64 - n)) & ((1u << s) - 1u)) : 0;
+  br.win <<= n;
+  br.nbits -= n;
+  return value;
+}
+
+// Decode one MCU's coefficients. `put(du, pos, value)` stores one raw
+// (still quantized) coefficient at zigzag position `pos`; the target must be
+// zeroed beforehand, since only DC and nonzero AC values are stored.
+// `dp` holds the DC predictors, reset by the caller at segment start.
+template <class Put>
+__device__ __forceinline__ void decode_mcu(BitReader& br, int* dp,
+                                           const int* tables,
+                                           const DecodeParams& p, Put put) {
+  for (int d = 0; d < p.dus; ++d) {
+    const int comp = p.du_to_comp[d];
+    const int* dctab = tables + (comp * 2) * TAB_INTS;
+    const int* actab = dctab + TAB_INTS;
+    int s, mag;
+    decode_symbol(br, dctab, true, s, mag);
+    // int32 predictor that wraps like the reference's on garbage input.
+    dp[comp] = (int)((unsigned)dp[comp] + (unsigned)extend(mag, s));
+    put(d, 0, dp[comp]);
+    int pos = 0;
+    while (pos < 63) {
+      const int value = decode_symbol(br, actab, false, s, mag);
+      const int rrrr = value >> 4;
+      const int newpos = pos + rrrr + 1;
+      if (s != 0 && newpos <= 63) put(d, newpos, extend(mag, s));
+      pos = (s == 0 && rrrr == 0) ? 64 : newpos;
+    }
+  }
+}

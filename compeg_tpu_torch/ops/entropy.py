@@ -1,0 +1,236 @@
+"""Restart-segment-parallel Huffman entropy decode (kernel K1) and its plain
+PyTorch twin.
+
+Counterpart of :mod:`compeg_tpu.ops.entropy`. The JAX package compiles its
+Huffman tables into the Pallas kernel (``EntropyPlan`` is the jit key); here
+they travel as device tensors (:class:`EntropyTables`), so one built kernel
+serves every stream.
+
+Input rows are the host packer's linear per-segment rows ``[>= nseg, W]``
+(``native.pack_rows(tile=None)``): u32 words, MSB-first, held as int32.
+Output is raw (still quantized) zigzag coefficients ``[nseg, ri, DUS, 64]``
+int32; MCU ``m`` of segment ``s`` is frame MCU ``s * ri + m``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Sequence, Tuple
+
+import torch
+
+from . import _build
+
+TAB_INTS = 17 + 17 + 2 + 256  # limits, delta, max_len, num_values, values
+
+
+@dataclass
+class EntropyTables:
+    """Per-component DC and AC Huffman tables as int32 tensors on one
+    device; index ``[comp, 0]`` is the DC table, ``[comp, 1]`` the AC one.
+
+    ``packed`` is the kernel's form, ``[C, 2, TAB_INTS]``: limits, delta,
+    max_len, num_values, values (csrc/entropy.cuh)."""
+
+    limits: torch.Tensor  # [C, 2, 17]
+    delta: torch.Tensor  # [C, 2, 17]
+    values: torch.Tensor  # [C, 2, 256], zero past num_values
+    max_len: torch.Tensor  # [C, 2]
+    num_values: torch.Tensor  # [C, 2]
+    packed: torch.Tensor = field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.packed = torch.cat(
+            [self.limits, self.delta, self.max_len[..., None],
+             self.num_values[..., None], self.values],
+            dim=-1,
+        ).contiguous()
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+
+def _tables(rows: Sequence[Sequence[Tuple]], device) -> EntropyTables:
+    """``rows[comp][cls] = (limits, delta, values, max_len, num_values)``."""
+    def stack(i):
+        return torch.tensor(
+            [[list(t[i]) if isinstance(t[i], (tuple, list)) else t[i]
+              for t in comp] for comp in rows],
+            dtype=torch.int32, device=device,
+        )
+
+    return EntropyTables(*(stack(i) for i in range(5)))
+
+
+def _padded(values) -> Tuple[int, ...]:
+    return tuple(values) + (0,) * (256 - len(values))
+
+
+def tables_from_image(img, device="cpu") -> EntropyTables:
+    """Tables of an analyzed frame (:class:`compeg_tpu.metadata.ImageData`),
+    built from its :class:`~compeg_tpu.huffman.CanonicalTable` objects."""
+    rows = []
+    for c in range(len(img.components)):
+        rows.append([
+            (t.limits, t.delta, _padded(t.values), t.max_len, t.num_values)
+            for t in (img.dc_table_for_comp(c), img.ac_table_for_comp(c))
+        ])
+    return _tables(rows, device)
+
+
+def tables_from_plan(plan, device="cpu") -> EntropyTables:
+    """Tables of a JAX ``EntropyPlan`` (compeg_tpu.ops.entropy), read by
+    attribute so that nothing here imports jax: the constants the Pallas
+    kernel was compiled with, for tests that feed both kernels alike."""
+    rows = []
+    for dc, ac in zip(plan.dc, plan.ac):
+        comp = []
+        for tc in (dc, ac):
+            words = [w & 0xFFFFFFFF for w in tc.value_words]
+            values = [(words[k >> 2] >> ((k & 3) * 8)) & 0xFF
+                      for k in range(tc.num_values)]
+            comp.append((tc.limits, tc.delta, _padded(values), tc.max_len,
+                         tc.num_values))
+        rows.append(comp)
+    return _tables(rows, device)
+
+
+def _check(rows: torch.Tensor, nseg: int, tables: EntropyTables) -> None:
+    if rows.dtype != torch.int32 or rows.dim() != 2:
+        raise ValueError(f"rows must be [N, W] int32, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if rows.shape[0] < nseg or rows.shape[1] < 1:
+        raise ValueError(f"rows {tuple(rows.shape)} hold fewer than {nseg} "
+                         "segments of at least one word")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    if tables.device != rows.device:
+        raise ValueError(f"tables on {tables.device}, rows on {rows.device}")
+
+
+def entropy_decode(rows: torch.Tensor, nseg: int, tables: EntropyTables,
+                   ri: int, total_mcus: int,
+                   du_to_comp: Sequence[int]) -> torch.Tensor:
+    """Decode ``nseg`` restart segments to ``[nseg, ri, DUS, 64]`` int32 raw
+    zigzag coefficients. CUDA tensors launch kernel K1; CPU tensors take
+    :func:`entropy_decode_reference`."""
+    _check(rows, nseg, tables)
+    if rows.device.type == "cpu":
+        return entropy_decode_reference(rows, nseg, tables, ri, total_mcus,
+                                        du_to_comp)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    out = torch.empty((nseg, ri, len(du_to_comp), 64), dtype=torch.int32,
+                      device=rows.device)
+    # K1 reads only the table count from the samplings.
+    ncomp = tables.limits.shape[0]
+    params = _build.make_params(nseg, rows.shape[1], ri, total_mcus,
+                                du_to_comp, samplings=[(1, 1)] * ncomp)
+    _build.launch("compeg_entropy_decode", rows, tables.packed, out,
+                  params=params)
+    _build.LAUNCHES["entropy"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain version: vectorised over segments like the TPU kernel, with gathers
+# for the word fetch and the value lookup.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _peek32(flat: torch.Tensor, width: int, idx: torch.Tensor,
+            bitpos: torch.Tensor) -> torch.Tensor:
+    """The 32 bits at ``bitpos`` of segments ``idx``, as int64, from the
+    flattened ``[nseg * width]`` words. A segment's stream is its row's
+    words in order with the word index clamped to the row's last word,
+    exactly what the kernel's refilled window holds."""
+    base = idx * width
+    w0 = flat[base + torch.clamp(bitpos >> 5, max=width - 1)]
+    w1 = flat[base + torch.clamp((bitpos >> 5) + 1, max=width - 1)]
+    o = bitpos & 31
+    # w0 < 2**32 and o <= 31, so the shift stays below 2**63.
+    return ((w0 << o) & _M32) | (w1 >> (32 - o))
+
+
+def _symbol(flat, width, idx, bitpos, tab, dc: bool):
+    """Decode one symbol of segments ``idx`` at their ``bitpos`` with table
+    ``tab`` = (limits, delta, values, max_len, num_values). Returns (value,
+    s, magnitude bits, bits used)."""
+    limits, delta, values, max_len, nv = tab
+    v32 = _peek32(flat, width, idx, bitpos)
+    c16 = v32 >> 16
+    ln = 1 + (c16[:, None] >= limits[None, 1:max_len]).sum(1)
+    k = (c16 >> (16 - ln)) + delta[ln]
+    k = torch.clamp(k, 0, nv - 1)
+    value = values[k]
+    s = torch.clamp(value, max=15) if dc else value & 15
+    n = ln + s
+    one_s = torch.bitwise_left_shift(torch.ones_like(s), s)
+    mag = (v32 >> (32 - n)) & (one_s - 1)
+    return value, s, mag, n
+
+
+def _extend(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """T.81 EXTEND; s == 0 gives 0."""
+    one_s = torch.bitwise_left_shift(torch.ones_like(s), s)
+    return torch.where(v < (one_s >> 1), v - one_s + 1, v)
+
+
+def entropy_decode_reference(rows: torch.Tensor, nseg: int,
+                             tables: EntropyTables, ri: int, total_mcus: int,
+                             du_to_comp: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch version of :func:`entropy_decode`, on any device."""
+    _check(rows, nseg, tables)
+    dev = rows.device
+    dus = len(du_to_comp)
+    out = torch.zeros((nseg, ri, dus, 64), dtype=torch.int32, device=dev)
+    width = rows.shape[1]
+    flat = rows[:nseg].reshape(-1).to(torch.int64) & _M32
+    seg = torch.arange(nseg, device=dev)
+    nm = torch.clamp(total_mcus - seg * ri, 0, ri)
+    bitpos = torch.zeros(nseg, dtype=torch.int64, device=dev)
+    ncomp = tables.limits.shape[0]
+    # DC predictors in int32 like the kernels (wrapping on garbage input).
+    dp = torch.zeros((ncomp, nseg), dtype=torch.int32, device=dev)
+    tabs = [
+        [(tables.limits[c, k].long(), tables.delta[c, k].long(),
+          tables.values[c, k].long(), int(tables.max_len[c, k]),
+          int(tables.num_values[c, k])) for k in (0, 1)]
+        for c in range(ncomp)
+    ]
+    for m in range(ri):
+        act = torch.nonzero(nm > m)[:, 0]
+        if act.numel() == 0:
+            break
+        for d, comp in enumerate(du_to_comp):
+            dctab, actab = tabs[comp]
+            _, s, mag, n = _symbol(flat, width, act, bitpos[act], dctab,
+                                   dc=True)
+            bitpos[act] += n
+            dp[comp, act] += _extend(mag, s).to(torch.int32)
+            out[act, m, d, 0] = dp[comp, act]
+            # AC loop: step every segment whose block is still open.
+            idx, pos = act, torch.zeros_like(act)
+            while idx.numel():
+                value, s, mag, n = _symbol(flat, width, idx, bitpos[idx],
+                                           actab, dc=False)
+                bitpos[idx] += n
+                rrrr = value >> 4
+                newpos = pos + rrrr + 1
+                put = (s != 0) & (newpos <= 63)
+                out[idx[put], m, d, newpos[put]] = _extend(
+                    mag[put], s[put]).to(torch.int32)
+                pos = torch.where((s == 0) & (rrrr == 0), 64, newpos)
+                keep = pos < 63
+                idx, pos = idx[keep], pos[keep]
+    return out
+
+
+def coefficients_natural_order(out: torch.Tensor, total_mcus: int) -> torch.Tensor:
+    """``[nseg, ri, DUS, 64]`` -> ``[total_mcus * DUS, 64]`` with MCUs in
+    raster order, the layout of ``golden.decode_coefficients``."""
+    dus = out.shape[2]
+    return out.reshape(-1, 64)[: total_mcus * dus]

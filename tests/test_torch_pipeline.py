@@ -1,0 +1,161 @@
+"""compeg_tpu_torch Decoder on the CPU (the kernels' plain versions) against
+the JAX Decoder (fused Pallas kernel, interpret mode) and the golden decoder.
+
+Pixels may differ by 1 between the three, the bound of
+tests/test_pipeline.py: the f32 IDCT sums in another order in each. The
+integer stages (coefficients, upsampling, colour) are exact.
+
+The sampling, geometry and restart-interval cases are spread over this file
+and test_torch_pipeline_geometry.py / test_torch_pipeline_restart.py, because
+each JAX decode compiles its kernel anew (10-25 s on the CPU)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from compeg_tpu import encoder, golden  # noqa: E402
+from compeg_tpu.errors import CompegError  # noqa: E402
+from compeg_tpu.pipeline import Decoder as JaxDecoder  # noqa: E402
+from compeg_tpu_torch import Decoder, decode_rgb  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_close(got, want, tol=1):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= tol, (diff.max(), np.argwhere(diff > tol)[:5])
+
+
+def check_against_jax_and_golden(data: bytes, retained: int = 64):
+    got = Decoder(retained_coefficients=retained, device="cpu").decode_rgba(data)
+    jax_rgba = JaxDecoder(retained_coefficients=retained,
+                          interpret=True).decode_rgba(data)
+    assert got.dtype == np.uint8 and (got[..., 3] == 255).all()
+    assert_close(got, jax_rgba)
+    assert_close(got[..., :3], golden.decode_rgb(data, retained_coefficients=retained))
+
+
+@pytest.mark.parametrize("sampling", ["422", "444", "gray", "440"])
+def test_decode_matches_jax_and_golden(sampling, test_image):
+    data = encoder.encode(test_image(24, 40, "gradient"), sampling=sampling,
+                          quality=85, restart_interval_mcus=1)
+    check_against_jax_and_golden(data)
+
+
+def test_decoder_reuse_across_frames_hits_header_cache(test_image):
+    dec = Decoder(device="cpu")
+    hdr = None
+    for seed in range(3):
+        data = encoder.encode(test_image(16, 32, "noise", seed=seed),
+                              sampling="422", quality=80,
+                              restart_interval_mcus=1)
+        assert_close(dec.decode(data), golden.decode_rgb(data))
+        if hdr is None:
+            hdr = dec._hdr_cache
+        # Same quality and geometry: byte-identical headers, one cache entry.
+        assert dec._hdr_cache is hdr
+
+
+def test_python_packer_without_the_native_library(monkeypatch, test_image):
+    """Without compeg_tpu's native library the scan is packed by the Python
+    twin (scan.split_intervals), header-cache hits included."""
+    from compeg_tpu import native
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    dec = Decoder(device="cpu")
+    for seed in range(2):
+        data = encoder.encode(test_image(16, 48, "noise", seed=seed),
+                              sampling="420", restart_interval_mcus=2)
+        pf = dec.prepare(data)
+        assert pf.packer == "python"
+        assert_close(dec.decode(data), golden.decode_rgb(data))
+
+
+def test_start_decode_reports_geometry_changes(test_image):
+    dec = Decoder(device="cpu")
+    small = encoder.encode(test_image(16, 32), sampling="422")
+    large = encoder.encode(test_image(24, 40), sampling="422")
+    ops = [dec.start_decode(d) for d in (small, small, large)]
+    assert [op.geometry_changed for op in ops] == [True, False, True]
+    assert ops[2].geometry.width == 40 and ops[2].geometry.height == 24
+    op = ops[2].block_until_ready()
+    assert_close(op.rgb(), golden.decode_rgb(large))
+    # DLPack hands over the packed RGBA words without a copy.
+    assert torch.equal(torch.from_dlpack(op), op.result)
+
+
+def test_truncated_stream_raises_interval_count(test_image):
+    data = encoder.encode(test_image(32, 64), sampling="422",
+                          restart_interval_mcus=1)
+    cut = data[: len(data) * 2 // 3] + b"\xFF\xD9"
+    with pytest.raises(CompegError, match=r"scan contains \d+ restart "
+                                          r"intervals, expected \d+"):
+        Decoder(device="cpu").decode(cut)
+
+
+def test_device_budget_raises(test_image):
+    data = encoder.encode(test_image(64, 64), sampling="422")
+    with pytest.raises(CompegError, match="budget"):
+        Decoder(device="cpu", max_device_bytes=1024).decode(data)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("exact_idct", True), ("zrl_compat", True), ("fancy_upsampling", True),
+    ("planes_epilogue", True), ("fused", False),
+])
+def test_unported_knobs_raise(knob, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        Decoder(device="cpu", **{knob: value})
+    Decoder(device="cpu", **{knob: {"fused": True, "planes_epilogue": None}
+                             .get(knob, False)})  # the default is accepted
+
+
+@pytest.mark.parametrize("method", ["decode_scaled", "decode_ycbcr"])
+def test_unported_entry_points_raise(method, test_image):
+    data = encoder.encode(test_image(16, 16), sampling="422")
+    args = (data, 2) if method == "decode_scaled" else (data,)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+        getattr(Decoder(device="cpu"), method)(*args)
+
+
+def test_unknown_knob_is_refused():
+    with pytest.raises(TypeError):
+        Decoder(device="cpu", interpret=True)
+
+
+def test_cuda_decoder_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        Decoder()
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        decode_rgb(b"")
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter decodes on the CPU through compeg_tpu_torch
+    without ever importing jax."""
+    code = (
+        "import sys, numpy as np\n"
+        "import compeg_tpu_torch as T\n"
+        "from compeg_tpu import encoder, golden\n"
+        "img = (np.arange(16 * 24 * 3) % 251).astype(np.uint8)"
+        ".reshape(16, 24, 3)\n"
+        "data = encoder.encode(img, sampling='420', restart_interval_mcus=1)\n"
+        "got = T.Decoder(device='cpu').decode(data)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        # golden's float IDCT imports compeg_tpu.ops.idct, which imports jax
+        "d = np.abs(got.astype(int) - golden.decode_rgb(data).astype(int))\n"
+        "assert d.max() <= 1, d.max()\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == "ok"
