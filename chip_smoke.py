@@ -5,11 +5,13 @@
 Builds the port's CUDA kernels from compeg_tpu_torch/csrc with nvcc, checks
 them against their plain PyTorch versions and against the golden decoder's
 answers on small streams of every supported sampling and on the 4K benchmark
-frame, drives the main path (``Decoder().decode``) with the launch counters
-zeroed, checks that garbage entropy bits terminate, and times the kernels
-against their plain versions. Any failure exits non-zero. The last three
-lines are the kernels JSON, the card's nvidia-smi name and power limit, and
-the result JSON. Needs one CUDA device.
+frame, drives each Decoder path with the launch counters zeroed (the default
+decode, the exact decode, decode_ycbcr, the fancy decode, the planes
+epilogue and decode_scaled) and checks that each went through its own
+kernel, checks that garbage entropy bits terminate in every kernel, and
+times the kernels against their plain versions. Any failure exits non-zero.
+The last three lines are the kernels JSON, the card's nvidia-smi name and
+power limit, and the result JSON. Needs one CUDA device.
 
 It imports compeg_tpu_torch (which reuses compeg_tpu's jax-free host
 modules) and no jax, and runs no golden or encoder code: golden's answers
@@ -32,10 +34,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "bench_assets", "bench4k.jpg")
 REPS = 20
+SCALES = (1, 2, 4)
+SOURCE = "compeg_tpu_torch/csrc/decode.cu"
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
 
 
 def nvidia_smi() -> str:
@@ -92,8 +101,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from compeg_tpu_torch import testdata
     from compeg_tpu_torch.ops import _build
+    from compeg_tpu_torch.ops import color as C
     from compeg_tpu_torch.ops import entropy as E
     from compeg_tpu_torch.ops import fused as F
+    from compeg_tpu_torch.ops import idct as D
     from compeg_tpu_torch.pipeline import Decoder
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain IDCT in full f32
@@ -119,6 +130,25 @@ def main() -> int:
     _build.library()
     log(f"(b) built {_build.library_path()} in {time.perf_counter() - t0:.1f} s")
 
+    def rgb(img):
+        return F.rgba_to_rgb(img).cpu().numpy()
+
+    def drive(fn):
+        """fn() with every launch count zeroed first; (result, counts)."""
+        for k in _build.LAUNCHES:
+            _build.LAUNCHES[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_build.LAUNCHES)
+
+    def only(counts, key, name):
+        """The path launched kernel ``key`` and no other fused kernel."""
+        others = {k: v for k, v in counts.items() if k != key and v}
+        log(f"(d) {name} launches: {counts}")
+        require(counts[key] >= 1 and not others,
+                f"{name} did not run on its own kernel ({key}): {counts}")
+        return counts[key]
+
     def kernels_and_plain(data, retained=64):
         """K1 (natural order, host), K1's max |diff| from the plain K1, K2
         RGB, the plain K2 RGB, and whether K2's alpha is 0xFF."""
@@ -130,42 +160,123 @@ def main() -> int:
         k1 = E.entropy_decode(*args)
         k1_err = int((k1.long() - E.entropy_decode_reference(*args)).abs().max())
         k1 = E.coefficients_natural_order(k1, g.total_mcus).cpu().numpy()
-        k2 = F.fused_decode_rgba(rows, pf.nseg, pf.tables, pf.lq_t, g)
+        k2 = F.fused_decode_rgba(rows, pf.nseg, pf.tables, pf.op, g)
         plain = F.fused_decode_rgba_reference(rows, pf.nseg, pf.tables,
-                                              pf.lq_t, g)
+                                              pf.op, g)
         alpha_ok = bool(((k2.cpu().numpy() >> 24) & 0xFF == 0xFF).all())
-        return (pf, rows, k1, k1_err, F.rgba_to_rgb(k2).cpu().numpy(),
-                F.rgba_to_rgb(plain).cpu().numpy(), alpha_ok)
+        return (pf, rows, k1, k1_err, rgb(k2), rgb(plain), alpha_ok)
+
+    def exact_frame(data, retained=64):
+        """(prepared frame, rows on the card) of an exact_idct decoder."""
+        dec = Decoder(retained_coefficients=retained, exact_idct=True)
+        pf = dec.prepare(data)
+        return pf, dec.upload(pf)
+
+    def crops(g):
+        max_h = max(h for h, _ in g.samplings)
+        max_v = max(v for _, v in g.samplings)
+        return [(-(-g.height * v // max_v), -(-g.width * h // max_h))
+                for h, v in g.samplings]
+
+    def modes(pf, rows):
+        """K2x, K3 (integer) and the fancy epilogue of one exact frame, each
+        with its plain twin: (k2x, plain k2x, k3 planes, plain planes, fancy
+        over K3, fancy over the plain planes)."""
+        g = pf.geom
+        args = (rows, pf.nseg, pf.tables, pf.op, g)
+        k2x = F.fused_decode_rgba_exact(*args)
+        k2x_plain = F.fused_decode_rgba_exact_reference(*args)
+        k3 = F.fused_decode_planes(*args, exact=True)
+        k3_plain = F.fused_decode_planes_reference(*args, exact=True)
+        fancy = [C.finalize_planes(p, g.samplings, g.width, g.height,
+                                   fancy=True, rgb=g.rgb)
+                 for p in (k3, k3_plain)]
+        return (k2x, k2x_plain, k3, k3_plain, *fancy)
 
     # ---- (c) small streams ---------------------------------------------------
     vec = testdata.load()
     for i, label in enumerate(vec["labels"]):
+        data = vec[f"jpeg_{i}"].tobytes()
+        retained = int(vec["retained"][i])
         _, _, k1, k1_err, k2_rgb, plain_rgb, alpha_ok = kernels_and_plain(
-            vec[f"jpeg_{i}"].tobytes(), int(vec["retained"][i]))
+            data, retained)
         want = vec[f"coeffs_{i}"]
-        if k1.shape != want.shape or not np.array_equal(k1, want) or k1_err:
-            raise AssertionError(f"{label}: K1 coefficients differ from golden "
-                                 f"(max |diff| from plain K1: {k1_err})")
+        require(k1.shape == want.shape and np.array_equal(k1, want)
+                and not k1_err,
+                f"{label}: K1 coefficients differ from golden (max |diff| "
+                f"from plain K1: {k1_err})")
         vs_plain = pixel_stats(k2_rgb, plain_rgb)
         vs_golden = pixel_stats(k2_rgb, vec[f"rgb_{i}"])
         log(f"(c) {label}: K1 == golden == plain K1; K2 vs plain max "
             f"{vs_plain[0]}, vs golden max {vs_golden[0]} (tolerance: max 1)")
-        if vs_plain[0] > 1 or vs_golden[0] > 1 or not alpha_ok:
-            raise AssertionError(f"{label}: K2 outside +-1 (plain {vs_plain}, "
-                                 f"golden {vs_golden}, alpha {alpha_ok})")
+        require(vs_plain[0] <= 1 and vs_golden[0] <= 1 and alpha_ok,
+                f"{label}: K2 outside +-1 (plain {vs_plain}, golden "
+                f"{vs_golden}, alpha {alpha_ok})")
+        # The integer modes: K2x and K3 exact, the fancy epilogue over K3
+        # equal to the same over the plain K3 and to the JAX package's
+        # staged colour functions over golden's planes.
+        pf, rows = exact_frame(data, retained)
+        k2x, k2x_plain, k3, k3_plain, fancy, fancy_plain = modes(pf, rows)
+        require(torch.equal(k2x, k2x_plain)
+                and np.array_equal(rgb(k2x), vec[f"rgbi_{i}"]),
+                f"{label}: K2x differs from golden's integer RGB or the plain "
+                "K2x")
+        for c, ((h, w), p, q) in enumerate(zip(crops(pf.geom), k3, k3_plain)):
+            require(torch.equal(p, q) and np.array_equal(
+                p[:h, :w].cpu().numpy(), vec[f"plane{c}_{i}"]),
+                f"{label}: K3 plane {c} differs from golden's or the plain K3")
+        require(torch.equal(fancy, fancy_plain)
+                and np.array_equal(rgb(fancy), vec[f"fancy_{i}"]),
+                f"{label}: the fancy decode differs from its plain twin or the "
+                "JAX colour functions")
+        worst = 0
+        for k in SCALES:
+            lq_k = D.scaled_operators(D.qz_by_slot_array(pf.image), k,
+                                      retained, rows.device)
+            args = (rows, pf.nseg, pf.tables, lq_k, pf.geom, k)
+            got = rgb(F.fused_decode_scaled(*args))
+            want = vec[f"rgbs{k}_{i}"]
+            require(got.shape == want.shape, f"{label}: K2s k={k} shape "
+                    f"{got.shape}, golden {want.shape}")
+            worst = max(worst, pixel_stats(got, want)[0], pixel_stats(
+                got, rgb(F.fused_decode_scaled_reference(*args)))[0])
+        require(worst <= 1, f"{label}: K2s outside +-1 ({worst})")
+        log(f"(c) {label}: K2x == golden integer RGB == plain K2x; K3 == "
+            f"golden integer planes == plain K3; fancy == plain == JAX "
+            f"colour functions; K2s k=1,2,4 max {worst} from golden and plain "
+            f"(tolerance: exact; K2s max 1)")
+
+    # The ZRL stream under the compat semantics, and random int16-range
+    # blocks whose integer IDCT wraps int32.
+    zrl = vec["zrl_jpeg"].tobytes()
+    for r in (64, 32):
+        got = Decoder(zrl_compat=True, exact_idct=True,
+                      retained_coefficients=r).decode(zrl)
+        require(np.array_equal(got, vec[f"zrl_rgbi_{r}"]),
+                f"ZRL stream, retained {r}: compat K2x differs from golden")
+    pf, rows = exact_frame(vec["wrap_jpeg"].tobytes())
+    k2x, k2x_plain, k3, k3_plain, _, _ = modes(pf, rows)
+    require(torch.equal(k2x, k2x_plain)
+            and np.array_equal(rgb(k2x), vec["wrap_rgbi"])
+            and all(torch.equal(p, q) for p, q in zip(k3, k3_plain)),
+            "wrap blocks: K2x or K3 differs from golden or its plain twin")
+    log("(c) ZRL stream: zrl_compat + K2x == golden compat (retained 64, 32); "
+        "wrap blocks: K2x == golden == plain K2x, K3 == plain K3 (exact)")
 
     # ---- (d) the 4K frame ----------------------------------------------------
-    # Golden's answers for it: the digests of its coefficients and RGB, and
-    # its RGB on three MCU rows. The full frame is held to the plain K2.
+    # Golden's answers for it: digests of its coefficients, float and integer
+    # RGB, integer planes and fancy RGB, and its float and scaled RGB on
+    # three MCU rows. The full frame is held to the plain twins.
     with open(BENCH, "rb") as f:
         data4k = f.read()
-    if hashlib.sha256(data4k).hexdigest() != str(vec["bench4k_jpeg_sha256"]):
-        raise AssertionError(f"{BENCH} is not the frame of {testdata.PATH}")
+    require(hashlib.sha256(data4k).hexdigest()
+            == str(vec["bench4k_jpeg_sha256"]),
+            f"{BENCH} is not the frame of {testdata.PATH}")
     pf, rows4k, k1, k1_err, k2_rgb, plain4k, alpha_ok = kernels_and_plain(
         data4k)
-    if testdata.digest(k1) != str(vec["bench4k_coeffs_sha256"]) or k1_err:
-        raise AssertionError(f"4K: K1 coefficients differ from golden's "
-                             f"(max |diff| from plain K1: {k1_err})")
+    require(testdata.digest(k1) == str(vec["bench4k_coeffs_sha256"])
+            and not k1_err, f"4K: K1 coefficients differ from golden's (max "
+            f"|diff| from plain K1: {k1_err})")
     rows = vec["bench4k_rows"]
     golden_rows = vec["bench4k_rgb_rows"]
     vs_plain = pixel_stats(k2_rgb, plain4k)
@@ -174,29 +285,91 @@ def main() -> int:
         f"{vs_plain[0]}, frac>1 {vs_plain[1]:.3g} (tolerance: K1 exact; "
         f"max 2, frac>1 <= 1e-5)")
     dec = Decoder()
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
-    rgb = dec.decode(data4k)  # the main path
-    launches = dict(_build.LAUNCHES)
-    log(f"(d) Decoder().decode(bench4k) launches: {launches}")
-    if launches["fused"] < 1:
-        raise AssertionError("the main path did not launch the fused kernel")
-    if rgb.shape != plain4k.shape:
-        raise AssertionError(f"4K: decode() gave {rgb.shape}, "
-                             f"not {plain4k.shape}")
+    main_rgb, counts = drive(lambda: dec.decode(data4k))  # the main path
+    launches = {"fused": only(counts, "fused", "Decoder().decode")}
+    require(main_rgb.shape == plain4k.shape,
+            f"4K: decode() gave {main_rgb.shape}, not {plain4k.shape}")
     checks = {
         "K2 vs plain K2": vs_plain,
-        "decode() vs plain K2": pixel_stats(rgb, plain4k),
-        "decode() vs golden rows": pixel_stats(rgb[rows], golden_rows),
+        "decode() vs plain K2": pixel_stats(main_rgb, plain4k),
+        "decode() vs golden rows": pixel_stats(main_rgb[rows], golden_rows),
         "plain K2 vs golden rows": pixel_stats(plain4k[rows], golden_rows),
     }
     for name, (mx, frac) in checks.items():
         log(f"(d) {name}: max {mx}, frac>1 {frac:.3g}")
-    same = testdata.digest(rgb) == str(vec["bench4k_rgb_sha256"])
+    same = testdata.digest(main_rgb) == str(vec["bench4k_rgb_sha256"])
     log(f"(d) decode() bit-identical to golden.decode_rgb (sha256): {same}")
-    if not alpha_ok or any(mx > 2 or frac > 1e-5
-                           for mx, frac in checks.values()):
-        raise AssertionError("4K decode outside the PARITY.md envelope")
+    require(alpha_ok and all(mx <= 2 and frac <= 1e-5
+                             for mx, frac in checks.values()),
+            "4K decode outside the PARITY.md envelope")
+
+    # The integer kernels against their plain twins on every pixel.
+    pfx, rowsx = exact_frame(data4k)
+    k2x, k2x_plain, k3, k3_plain, fancy, fancy_plain = modes(pfx, rowsx)
+    k2x_err = int((k2x - k2x_plain).abs().max())
+    k3_err = max(int((p.int() - q.int()).abs().max())
+                 for p, q in zip(k3, k3_plain))
+    require(k2x_err == 0 and k3_err == 0 and torch.equal(fancy, fancy_plain),
+            f"4K: K2x ({k2x_err}) or K3 ({k3_err}) or the fancy epilogue "
+            "differs from its plain twin")
+    log("(d) 4K: K2x == plain K2x, K3 (integer) == plain K3, fancy over K3 "
+        "== fancy over the plain K3, on every pixel")
+
+    exact_dec = Decoder(exact_idct=True)
+    got, counts = drive(lambda: exact_dec.decode(data4k))
+    launches["fused_exact"] = only(counts, "fused_exact",
+                                   "Decoder(exact_idct=True).decode")
+    require(testdata.digest(got) == str(vec["bench4k_rgbi_sha256"]),
+            "4K: the exact decode is not golden's integer RGB (sha256)")
+    log("(d) Decoder(exact_idct=True).decode(bench4k) bit-identical to "
+        "golden.decode_rgb(idct='int') (sha256)")
+
+    planes, counts = drive(lambda: exact_dec.decode_ycbcr(data4k))
+    only(counts, "planes", "Decoder(exact_idct=True).decode_ycbcr")
+    for c, p in enumerate(planes):
+        require(testdata.digest(p) == str(vec[f"bench4k_plane{c}_sha256"]),
+                f"4K: decode_ycbcr plane {c} is not golden's (sha256)")
+    log(f"(d) decode_ycbcr(bench4k): planes {[p.shape for p in planes]} "
+        "equal golden's integer planes (sha256)")
+
+    fancy_dec = Decoder(fancy_upsampling=True, exact_idct=True)
+    got, counts = drive(lambda: fancy_dec.decode(data4k))
+    launches["planes"] = only(counts, "planes",
+                              "Decoder(fancy_upsampling, exact_idct).decode")
+    require(testdata.digest(got) == str(vec["bench4k_fancy_sha256"]),
+            "4K: the fancy + exact decode is not the stored digest")
+    log("(d) fancy + exact decode(bench4k) equals the JAX colour functions "
+        "over golden's integer planes (sha256)")
+
+    pe_dec = Decoder(planes_epilogue=True)
+    got, counts = drive(lambda: pe_dec.decode(data4k))
+    only(counts, "planes", "Decoder(planes_epilogue=True).decode")
+    require(np.array_equal(got, main_rgb),
+            "4K: planes_epilogue=True differs from the composite")
+    log("(d) Decoder(planes_epilogue=True).decode(bench4k) == Decoder().decode")
+
+    thumbs, counts = drive(lambda: [dec.decode_scaled(data4k, k)
+                                    for k in SCALES])
+    launches["scaled"] = only(counts, "scaled", "decode_scaled(k=1,2,4)")
+    scaled_err = 0
+    for k, got in zip(SCALES, thumbs):
+        g_rows = vec[f"bench4k_rgbs{k}_rows"]
+        lq_k = D.scaled_operators(D.qz_by_slot_array(pf.image), k,
+                                  device=rows4k.device)
+        args = (rows4k, pf.nseg, pf.tables, lq_k, pf.geom, k)
+        k2s = rgb(F.fused_decode_scaled(*args))
+        vs_rows = pixel_stats(got[vec[f"bench4k_rows{k}"]], g_rows)
+        vs_plain_k = pixel_stats(k2s, rgb(F.fused_decode_scaled_reference(
+            *args)))
+        require(np.array_equal(k2s, got), f"4K: K2s k={k} differs from "
+                "decode_scaled")
+        log(f"(d) decode_scaled(bench4k, {k}) {got.shape}: vs golden rows "
+            f"max {vs_rows[0]}, K2s vs plain K2s max {vs_plain_k[0]} "
+            f"(tolerance: max 1)")
+        require(got.shape == (2160 * k // 8, 3840 * k // 8, 3)
+                and vs_rows[0] <= 1 and vs_plain_k[0] <= 1,
+                f"4K: scaled k={k} outside +-1")
+        scaled_err = max(scaled_err, vs_plain_k[0])
 
     # ---- (e) garbage entropy bits terminate ---------------------------------
     img = pf.image
@@ -207,67 +380,121 @@ def main() -> int:
     noise = np.random.default_rng(5).integers(0, 255, scan.size, dtype=np.uint8)
     scan[~keep] = noise[~keep]
     garbage = data4k[:off] + scan.tobytes() + data4k[off + scan.size:]
-    gdec = Decoder()
-    gpf = gdec.prepare(garbage)
-    grows = gdec.upload(gpf)
+    gpf, grows = exact_frame(garbage)
     g = gpf.geom
     t0 = time.perf_counter()
     gk1 = E.entropy_decode(grows, gpf.nseg, gpf.tables, g.ri, g.total_mcus,
                            g.du_to_comp)
-    gk2 = F.fused_decode_rgba(grows, gpf.nseg, gpf.tables, gpf.lq_t, g)
+    gk2 = F.fused_decode_rgba(grows, gpf.nseg, gpf.tables,
+                              D.idct_operators(D.qz_by_slot_array(gpf.image),
+                                               device=grows.device), g)
+    gk2x = F.fused_decode_rgba_exact(grows, gpf.nseg, gpf.tables, gpf.op, g)
+    gk3 = F.fused_decode_planes(grows, gpf.nseg, gpf.tables, gpf.op, g,
+                                exact=True)
+    gk2s = F.fused_decode_scaled(grows, gpf.nseg, gpf.tables, D.scaled_operators(
+        D.qz_by_slot_array(gpf.image), 1, device=grows.device), g, 1)
     torch.cuda.synchronize()
-    log(f"(e) garbage bits: both kernels returned in "
-        f"{time.perf_counter() - t0:.3f} s; K2 {tuple(gk2.shape)}")
+    log(f"(e) garbage bits: K1, K2, K2x, K3, K2s returned in "
+        f"{time.perf_counter() - t0:.3f} s; K2 {tuple(gk2.shape)}, K2s "
+        f"{tuple(gk2s.shape)}")
     gref = E.entropy_decode_reference(grows, gpf.nseg, gpf.tables, g.ri,
                                       g.total_mcus, g.du_to_comp)
-    if not torch.equal(gk1, gref) or tuple(gk2.shape) != (g.height, g.width):
-        raise AssertionError("garbage bits: K1 differs from its plain version")
-    log("(e) garbage bits: K1 == plain K1")
+    args = (grows, gpf.nseg, gpf.tables, gpf.op, g)
+    require(torch.equal(gk1, gref) and tuple(gk2.shape) == (g.height, g.width),
+            "garbage bits: K1 differs from its plain version")
+    require(torch.equal(gk2x, F.fused_decode_rgba_exact_reference(*args))
+            and all(torch.equal(p, q) for p, q in zip(
+                gk3, F.fused_decode_planes_reference(*args, exact=True))),
+            "garbage bits: K2x or K3 differs from its plain version")
+    log("(e) garbage bits: K1 == plain K1, K2x == plain K2x, K3 == plain K3")
 
     # ---- (f) times -----------------------------------------------------------
     g = pf.geom
-    k2_ms = cuda_ms(lambda: F.fused_decode_rgba(rows4k, pf.nseg, pf.tables,
-                                                pf.lq_t, g))
-    k1_ms = cuda_ms(lambda: E.entropy_decode(rows4k, pf.nseg, pf.tables, g.ri,
-                                             g.total_mcus, g.du_to_comp))
-    plain_ms = cuda_ms(lambda: F.fused_decode_rgba_reference(
-        rows4k, pf.nseg, pf.tables, pf.lq_t, g), warmup=1)
-    plain_k1_ms = cuda_ms(lambda: E.entropy_decode_reference(
-        rows4k, pf.nseg, pf.tables, g.ri, g.total_mcus, g.du_to_comp),
-        warmup=1)
+    qz = pfx.op
+    lq = {k: D.scaled_operators(D.qz_by_slot_array(pf.image), k,
+                                device=rows4k.device) for k in SCALES}
+    base = (rows4k, pf.nseg, pf.tables)
+    ms = {
+        "K2": cuda_ms(lambda: F.fused_decode_rgba(*base, pf.op, g)),
+        "K1": cuda_ms(lambda: E.entropy_decode(*base, g.ri, g.total_mcus,
+                                               g.du_to_comp)),
+        "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact(*base, qz, g)),
+        "K3 int": cuda_ms(lambda: F.fused_decode_planes(*base, qz, g,
+                                                        exact=True)),
+        "K3 float": cuda_ms(lambda: F.fused_decode_planes(*base, pf.op, g)),
+    }
+    for k in SCALES:
+        ms[f"K2s k={k}"] = cuda_ms(
+            lambda k=k: F.fused_decode_scaled(*base, lq[k], g, k))
+    plain = {
+        "K2": cuda_ms(lambda: F.fused_decode_rgba_reference(*base, pf.op, g),
+                      warmup=1),
+        "K1": cuda_ms(lambda: E.entropy_decode_reference(
+            *base, g.ri, g.total_mcus, g.du_to_comp), warmup=1),
+        "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact_reference(
+            *base, qz, g), warmup=1),
+        "K3 int": cuda_ms(lambda: F.fused_decode_planes_reference(
+            *base, qz, g, exact=True), warmup=1),
+        "K3 float": cuda_ms(lambda: F.fused_decode_planes_reference(
+            *base, pf.op, g), warmup=1),
+    }
+    for k in SCALES:
+        plain[f"K2s k={k}"] = cuda_ms(
+            lambda k=k: F.fused_decode_scaled_reference(*base, lq[k], g, k),
+            warmup=1)
+    for name in ms:
+        log(f"(f) {name} at 4K: {ms[name]:.4f} ms, plain twin "
+            f"{plain[name]:.4f} ms (medians of {REPS} CUDA-event timings) on "
+            f"{card}")
     prep_ms = wall_ms(lambda: dec.prepare(data4k))
     h2d_ms = wall_ms(lambda: dec.upload(pf))
-    out4k = F.fused_decode_rgba(rows4k, pf.nseg, pf.tables, pf.lq_t, g)
+    out4k = F.fused_decode_rgba(*base, pf.op, g)
     d2h_ms = wall_ms(lambda: F.rgba_to_rgb(out4k).cpu())
-    dec_ms = wall_ms(lambda: dec.decode(data4k))
-    for name, v in (("K2 fused_decode_rgba", k2_ms), ("K1 entropy_decode", k1_ms),
-                    ("plain K2", plain_ms), ("plain K1", plain_k1_ms)):
-        log(f"(f) {name} at 4K: {v:.4f} ms (median of {REPS} CUDA-event "
-            f"timings) on {card}")
+    walls = {
+        "decode()": wall_ms(lambda: dec.decode(data4k)),
+        "exact decode()": wall_ms(lambda: exact_dec.decode(data4k)),
+        "exact decode_ycbcr()": wall_ms(lambda: exact_dec.decode_ycbcr(data4k)),
+        "fancy exact decode()": wall_ms(lambda: fancy_dec.decode(data4k)),
+        "planes_epilogue decode()": wall_ms(lambda: pe_dec.decode(data4k)),
+    }
+    for k in SCALES:
+        walls[f"decode_scaled(k={k})"] = wall_ms(
+            lambda k=k: dec.decode_scaled(data4k, k))
     log(f"(f) prepare {prep_ms:.3f} ms, H2D {h2d_ms:.3f} ms "
-        f"({pf.rows[:pf.nseg].nbytes} B), RGB readback {d2h_ms:.3f} ms, "
-        f"decode() {dec_ms:.3f} ms wall "
+        f"({pf.rows[:pf.nseg].nbytes} B), RGB readback {d2h_ms:.3f} ms "
         f"(median of {REPS}) on {card}; packer {pf.packer}")
+    for name, v in walls.items():
+        log(f"(f) {name} {v:.3f} ms wall (median of {REPS}) on {card}")
 
-    source = "compeg_tpu_torch/csrc/decode.cu"
+    def entry(name, replaces, key, err, ms_key, **extra):
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": replaces, "launches": launches.get(key, 0),
+                "max_abs_err": err, "ms": ms[ms_key],
+                "plain_ms": plain[ms_key], **extra}
+
     log(json.dumps({
-        "kernels": [{
-            "name": "fused_decode_kernel", "route": "cuda", "source": source,
-            "replaces": "compeg_tpu/ops/fused.py:419",
-            "launches": launches["fused"], "max_abs_err": vs_plain[0],
-            "ms": k2_ms, "plain_ms": plain_ms,
-        }],
-        # Ported, but not on Decoder().decode's path.
-        "off_path_kernels": [{
-            "name": "entropy_kernel", "route": "cuda", "source": source,
-            "replaces": "compeg_tpu/ops/entropy.py:440",
-            "launches": launches["entropy"], "max_abs_err": k1_err,
-            "ms": k1_ms, "plain_ms": plain_k1_ms,
-        }],
+        "kernels": [
+            entry("fused_decode_kernel<kIdctFloat, kOutRgba> (K2)",
+                  "compeg_tpu/ops/fused.py:419", "fused", vs_plain[0], "K2"),
+            entry("fused_decode_kernel<kIdctInt, kOutRgba> (K2x)",
+                  "compeg_tpu/ops/fused.py:419", "fused_exact", k2x_err,
+                  "K2x"),
+            entry("fused_decode_kernel<kIdct*, kOutPlanes> (K3)",
+                  "compeg_tpu/ops/fused.py:580", "planes", k3_err, "K3 int",
+                  float_ms=ms["K3 float"], float_plain_ms=plain["K3 float"]),
+            entry("fused_decode_kernel<kIdctScaled, kOutRgba> (K2s)",
+                  "compeg_tpu/ops/fused.py:419", "scaled", scaled_err,
+                  "K2s k=1", ms_by_k={k: ms[f"K2s k={k}"] for k in SCALES},
+                  plain_ms_by_k={k: plain[f"K2s k={k}"] for k in SCALES}),
+        ],
+        # Ported, but on no Decoder path.
+        "off_path_kernels": [
+            entry("entropy_kernel (K1)", "compeg_tpu/ops/entropy.py:440",
+                  "entropy", k1_err, "K1"),
+        ],
     }))
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-    if leaked:
-        raise AssertionError(f"imported {leaked[:5]}")
+    require(not leaked, f"imported {leaked[:5]}")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

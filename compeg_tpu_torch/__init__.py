@@ -5,10 +5,13 @@ native packer) is compeg_tpu's own, reused unchanged; the device side is
 PyTorch with hand-written CUDA kernels for Hopper (csrc/), built with nvcc
 at first use. Nothing here imports jax.
 
-Public API (mirroring compeg_tpu's default decode path):
+Public API (mirroring compeg_tpu's single-frame fused decode):
 
     ImageData / analyze   — parse + validate a JPEG
-    Decoder               — per-stream decode state on one torch device
+    Decoder               — per-stream decode state on one torch device:
+                            decode / decode_rgba / start_decode, decode_ycbcr,
+                            decode_scaled; knobs exact_idct, zrl_compat,
+                            fancy_upsampling, planes_epilogue
     decode_rgb            — one-shot decode to an [H, W, 3] u8 array
     decode_rgba           — one-shot decode to an [H, W, 4] u8 array
     CompegError           — the single error type

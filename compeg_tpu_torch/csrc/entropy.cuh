@@ -1,4 +1,4 @@
-// Shared device code of the two decode kernels (csrc/decode.cu): the
+// Shared device code of the decode kernels (csrc/decode.cu): the
 // per-thread bit reader, canonical Huffman symbol decode and the MCU
 // coefficient loop.
 //
@@ -21,7 +21,9 @@
 //  * AC: newpos = pos + rrrr + 1, the coefficient is written only when
 //    s != 0 and newpos <= 63; only EOB (s == 0, rrrr == 0) ends the block
 //    early, ZRL and reserved (run, 0) symbols advance and write nothing; the
-//    block also ends at pos >= 63, so every thread terminates on any bits.
+//    block also ends at pos >= 63, so every thread terminates on any bits;
+//  * under zrl17 (Decoder(zrl_compat=True), the reference's semantics) a ZRL
+//    advances one position more, 17 instead of 16 (entropy.py:317-320).
 #pragma once
 
 #include <cstdint>
@@ -42,6 +44,9 @@ struct DecodeParams {
   int comp_h[3];
   int comp_v[3];
   int comp_slot[3];  // first DU slot of each component in the MCU
+  int zrl17;       // ZRL advances 17 positions (compat), not 16
+  int blk;         // output pixels per DU side: 8, or k of the scaled decode
+  int zlen;        // zigzag positions the scaled IDCT reads (its nonzero prefix)
 };
 
 // One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:
@@ -135,7 +140,7 @@ __device__ __forceinline__ void decode_mcu(BitReader& br, int* dp,
     while (pos < 63) {
       const int value = decode_symbol(br, actab, false, s, mag);
       const int rrrr = value >> 4;
-      const int newpos = pos + rrrr + 1;
+      const int newpos = pos + rrrr + 1 + (p.zrl17 && s == 0 && rrrr == 15);
       if (s != 0 && newpos <= 63) put(d, newpos, extend(mag, s));
       pos = (s == 0 && rrrr == 0) ? 64 : newpos;
     }

@@ -37,7 +37,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"entropy": 0, "fused": 0}
+# One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s.
+LAUNCHES = {"entropy": 0, "fused": 0, "fused_exact": 0, "planes": 0,
+            "scaled": 0}
+
+# C entry points and their number of tensor arguments (data pointers
+# before the params struct and the stream; csrc/decode.cu).
+ENTRY_POINTS = {
+    "compeg_entropy_decode": 3,
+    "compeg_fused_decode": 4,
+    "compeg_fused_decode_exact": 4,
+    "compeg_fused_decode_planes": 6,
+    "compeg_fused_decode_planes_exact": 6,
+    "compeg_fused_decode_scaled": 4,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -61,12 +74,17 @@ class DecodeParams(ctypes.Structure):
         ("comp_h", ctypes.c_int32 * 3),
         ("comp_v", ctypes.c_int32 * 3),
         ("comp_slot", ctypes.c_int32 * 3),
+        ("zrl17", ctypes.c_int32),
+        ("blk", ctypes.c_int32),
+        ("zlen", ctypes.c_int32),
     ]
 
 
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
-                width=0, height=0, width_mcus=0, rgb=False) -> DecodeParams:
-    """The launch parameters; the frame fields are read by K2 only."""
+                width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
+                blk=8, zlen=64) -> DecodeParams:
+    """The launch parameters; the frame fields are read by the fused
+    kernels only, ``blk`` and ``zlen`` by the scaled one."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -76,6 +94,7 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
         nseg=nseg, words=words, ri=ri, total_mcus=total_mcus,
         dus=len(du_to_comp), ncomp=len(samplings), width=width,
         height=height, width_mcus=width_mcus, rgb=int(rgb),
+        zrl17=int(zrl17), blk=blk, zlen=zlen,
     )
     slot = 0
     for i, c in enumerate(du_to_comp):
@@ -136,8 +155,7 @@ def library() -> ctypes.CDLL:
                 )
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
-        for name, npointers in (("compeg_entropy_decode", 3),
-                                ("compeg_fused_decode", 4)):
+        for name, npointers in ENTRY_POINTS.items():
             fn = getattr(lib, name)
             # data pointers, then the params struct pointer and the stream
             fn.argtypes = [ctypes.c_void_p] * (npointers + 2)
@@ -150,7 +168,8 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *tensors, params: DecodeParams) -> None:
     """Launch C entry point ``name`` on the current stream of the tensors'
-    device; raises with the CUDA error string if the launch failed."""
+    device (a ``None`` tensor passes a null pointer); raises with the CUDA
+    error string if the launch failed."""
     import torch
 
     lib = library()
@@ -158,7 +177,8 @@ def launch(name: str, *tensors, params: DecodeParams) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = getattr(lib, name)(
-            *[t.data_ptr() for t in tensors], ctypes.byref(params), stream
+            *[None if t is None else t.data_ptr() for t in tensors],
+            ctypes.byref(params), stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -30,13 +30,16 @@ class EntropyTables:
     device; index ``[comp, 0]`` is the DC table, ``[comp, 1]`` the AC one.
 
     ``packed`` is the kernel's form, ``[C, 2, TAB_INTS]``: limits, delta,
-    max_len, num_values, values (csrc/entropy.cuh)."""
+    max_len, num_values, values (csrc/entropy.cuh). ``zrl17`` selects the
+    reference's ZRL semantics (advance 17, ``Decoder(zrl_compat=True)``),
+    which the JAX package likewise carries in its ``EntropyPlan``."""
 
     limits: torch.Tensor  # [C, 2, 17]
     delta: torch.Tensor  # [C, 2, 17]
     values: torch.Tensor  # [C, 2, 256], zero past num_values
     max_len: torch.Tensor  # [C, 2]
     num_values: torch.Tensor  # [C, 2]
+    zrl17: bool = False
     packed: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
@@ -51,7 +54,8 @@ class EntropyTables:
         return self.packed.device
 
 
-def _tables(rows: Sequence[Sequence[Tuple]], device) -> EntropyTables:
+def _tables(rows: Sequence[Sequence[Tuple]], device,
+            zrl17: bool) -> EntropyTables:
     """``rows[comp][cls] = (limits, delta, values, max_len, num_values)``."""
     def stack(i):
         return torch.tensor(
@@ -60,14 +64,14 @@ def _tables(rows: Sequence[Sequence[Tuple]], device) -> EntropyTables:
             dtype=torch.int32, device=device,
         )
 
-    return EntropyTables(*(stack(i) for i in range(5)))
+    return EntropyTables(*(stack(i) for i in range(5)), zrl17=zrl17)
 
 
 def _padded(values) -> Tuple[int, ...]:
     return tuple(values) + (0,) * (256 - len(values))
 
 
-def tables_from_image(img, device="cpu") -> EntropyTables:
+def tables_from_image(img, device="cpu", zrl17: bool = False) -> EntropyTables:
     """Tables of an analyzed frame (:class:`compeg_tpu.metadata.ImageData`),
     built from its :class:`~compeg_tpu.huffman.CanonicalTable` objects."""
     rows = []
@@ -76,7 +80,7 @@ def tables_from_image(img, device="cpu") -> EntropyTables:
             (t.limits, t.delta, _padded(t.values), t.max_len, t.num_values)
             for t in (img.dc_table_for_comp(c), img.ac_table_for_comp(c))
         ])
-    return _tables(rows, device)
+    return _tables(rows, device, zrl17)
 
 
 def tables_from_plan(plan, device="cpu") -> EntropyTables:
@@ -93,7 +97,7 @@ def tables_from_plan(plan, device="cpu") -> EntropyTables:
             comp.append((tc.limits, tc.delta, _padded(values), tc.max_len,
                          tc.num_values))
         rows.append(comp)
-    return _tables(rows, device)
+    return _tables(rows, device, plan.zrl17)
 
 
 def _check(rows: torch.Tensor, nseg: int, tables: EntropyTables) -> None:
@@ -126,7 +130,8 @@ def entropy_decode(rows: torch.Tensor, nseg: int, tables: EntropyTables,
     # K1 reads only the table count from the samplings.
     ncomp = tables.limits.shape[0]
     params = _build.make_params(nseg, rows.shape[1], ri, total_mcus,
-                                du_to_comp, samplings=[(1, 1)] * ncomp)
+                                du_to_comp, samplings=[(1, 1)] * ncomp,
+                                zrl17=tables.zrl17)
     _build.launch("compeg_entropy_decode", rows, tables.packed, out,
                   params=params)
     _build.LAUNCHES["entropy"] += 1
@@ -220,6 +225,8 @@ def entropy_decode_reference(rows: torch.Tensor, nseg: int,
                 bitpos[idx] += n
                 rrrr = value >> 4
                 newpos = pos + rrrr + 1
+                if tables.zrl17:  # a ZRL advances 17 (the reference's)
+                    newpos = newpos + ((s == 0) & (rrrr == 15)).long()
                 put = (s != 0) & (newpos <= 63)
                 out[idx[put], m, d, newpos[put]] = _extend(
                     mag[put], s[put]).to(torch.int32)

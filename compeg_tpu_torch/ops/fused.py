@@ -1,110 +1,204 @@
-"""Fused decode (kernel K2): entropy -> IDCT -> upsample/color -> raster RGBA,
-and its plain PyTorch twin.
+"""Fused decode: entropy -> IDCT -> output in one kernel, in its four modes,
+each with its plain PyTorch twin.
 
-Counterpart of :mod:`compeg_tpu.ops.fused` in its default mode (nearest
-chroma upsampling, float IDCT, gray and RGB-ID frames included). The Pallas
-kernel writes segment-major blocks that an XLA transpose assembles; a GPU
-thread can scatter, so K2 writes the cropped raster ``[H, W]`` itself.
+Counterpart of :mod:`compeg_tpu.ops.fused`:
 
-Pixels are packed ``r | g << 8 | b << 16 | 0xFF << 24`` into int32, the same
-bits as the JAX package's u32 RGBA.
+* :func:`fused_decode_rgba` (K2): float IDCT, nearest chroma upsampling,
+  BT.601, packed RGBA raster (gray and RGB-ID frames included);
+* :func:`fused_decode_rgba_exact` (K2x): the same with the exact integer
+  IDCT (``exact_idct``), byte-identical to ``golden.decode_rgb(idct="int")``;
+* :func:`fused_decode_planes` (K3): float or integer IDCT, one u8 plane per
+  component for the epilogue of ``ops/color.py`` (fancy upsampling,
+  ``planes_epilogue``, ``decode_ycbcr``);
+* :func:`fused_decode_scaled` (K2s): the k-point scaled IDCT and the
+  composite of k x k blocks, the ``k/8`` thumbnail decode.
+
+The Pallas kernels write segment-major blocks or tiled slabs that an XLA
+transpose assembles; a GPU thread can scatter, so these kernels write the
+raster (or the planes) themselves. Pixels are packed
+``r | g << 8 | b << 16 | 0xFF << 24`` into int32, the same bits as the JAX
+package's u32 RGBA. CUDA tensors launch the kernel; CPU tensors take the
+plain twin.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
 
 from . import _build
+from .color import component_planes, pack_rgba, ycbcr_to_rgba
 from .entropy import EntropyTables, _check, entropy_decode_reference
-from .idct import idct_pixels
+from .idct import SCALED_ZLEN, idct_pixels
+from .int_idct import idct_pixels_int
 
 
-def _check_lq(lq_t: torch.Tensor, geom, device) -> None:
-    dus = len(geom.du_to_comp)
-    if (lq_t.dtype != torch.float32 or tuple(lq_t.shape) != (dus, 64, 64)
-            or not lq_t.is_contiguous() or lq_t.device != device):
+def _check_op(op: torch.Tensor, shape, dtype, device, name: str) -> None:
+    if (op.dtype != dtype or tuple(op.shape) != tuple(shape)
+            or not op.is_contiguous() or op.device != device):
         raise ValueError(
-            f"lq_t must be contiguous [{dus}, 64, 64] float32 on {device}, got "
-            f"{lq_t.dtype} {tuple(lq_t.shape)} on {lq_t.device}"
+            f"{name} must be contiguous {list(shape)} {dtype} on {device}, "
+            f"got {op.dtype} {tuple(op.shape)} on {op.device}"
         )
+
+
+def _check_args(rows, nseg, tables, op, geom, npx: Optional[int]) -> bool:
+    """Checks the inputs; True when they lie on the CPU (the plain twin's
+    case). ``npx`` is the float operator's pixel count, None for the integer
+    quantizers."""
+    _check(rows, nseg, tables)
+    dus = len(geom.du_to_comp)
+    if npx is None:
+        _check_op(op, (dus, 64), torch.int32, rows.device, "qz")
+    else:
+        _check_op(op, (dus, 64, npx), torch.float32, rows.device, "lq_t")
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rows.device}")
+    return rows.device.type == "cpu"
+
+
+def _params(rows, nseg, tables, geom, blk=8):
+    return _build.make_params(
+        nseg, rows.shape[1], geom.ri, geom.total_mcus, geom.du_to_comp,
+        samplings=geom.samplings, width=geom.width, height=geom.height,
+        width_mcus=geom.width_mcus, rgb=geom.rgb, zrl17=tables.zrl17,
+        blk=blk, zlen=SCALED_ZLEN.get(blk, 64),
+    )
+
+
+def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8):
+    out = torch.empty((geom.height, geom.width), dtype=torch.int32,
+                      device=rows.device)
+    _build.launch(entry, rows, tables.packed, op, out,
+                  params=_params(rows, nseg, tables, geom, blk))
+    _build.LAUNCHES[key] += 1
+    return out
 
 
 def fused_decode_rgba(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                       lq_t: torch.Tensor, geom) -> torch.Tensor:
-    """Decode a frame to packed RGBA ``[H, W]`` int32.
+    """Decode a frame to packed RGBA ``[H, W]`` int32 (kernel K2).
 
     ``rows`` are the packed segment words ``[>= nseg, W]`` int32, ``lq_t``
     the operators of :func:`~compeg_tpu_torch.ops.idct.idct_operators`, and
-    ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`. CUDA
-    tensors launch kernel K2; CPU tensors take
-    :func:`fused_decode_rgba_reference`."""
-    _check(rows, nseg, tables)
-    _check_lq(lq_t, geom, rows.device)
-    if rows.device.type == "cpu":
+    ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`."""
+    if _check_args(rows, nseg, tables, lq_t, geom, 64):
         return fused_decode_rgba_reference(rows, nseg, tables, lq_t, geom)
-    if rows.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows.device}")
-    out = torch.empty((geom.height, geom.width), dtype=torch.int32,
-                      device=rows.device)
-    params = _build.make_params(
-        nseg, rows.shape[1], geom.ri, geom.total_mcus, geom.du_to_comp,
-        samplings=geom.samplings, width=geom.width, height=geom.height,
-        width_mcus=geom.width_mcus, rgb=geom.rgb,
-    )
-    _build.launch("compeg_fused_decode", rows, tables.packed, lq_t, out,
-                  params=params)
-    _build.LAUNCHES["fused"] += 1
-    return out
+    return _launch_rgba("compeg_fused_decode", "fused", rows, nseg, tables,
+                        lq_t, geom)
 
 
-def _composite_index(geom, device) -> dict:
+def fused_decode_rgba_exact(rows: torch.Tensor, nseg: int,
+                            tables: EntropyTables, qz: torch.Tensor,
+                            geom) -> torch.Tensor:
+    """:func:`fused_decode_rgba` with the exact integer IDCT (kernel K2x);
+    ``qz`` are the quantizers of
+    :func:`~compeg_tpu_torch.ops.int_idct.int_quantizers`."""
+    if _check_args(rows, nseg, tables, qz, geom, None):
+        return fused_decode_rgba_exact_reference(rows, nseg, tables, qz, geom)
+    return _launch_rgba("compeg_fused_decode_exact", "fused_exact", rows,
+                        nseg, tables, qz, geom)
+
+
+def scaled_geometry(geom, k: int):
+    """The geometry of the ``k/8`` scaled frame: ``ceil(H*k/8)`` x
+    ``ceil(W*k/8)`` pixels over the same MCU grid (libjpeg's rounding)."""
+    return dataclasses.replace(geom, height=-(-geom.height * k // 8),
+                               width=-(-geom.width * k // 8))
+
+
+def fused_decode_scaled(rows: torch.Tensor, nseg: int, tables: EntropyTables,
+                        lq_k: torch.Tensor, geom, k: int) -> torch.Tensor:
+    """Decode at ``k/8`` scale, k in {1, 2, 4}, to packed RGBA
+    ``[ceil(H*k/8), ceil(W*k/8)]`` int32 (kernel K2s); ``lq_k`` are the
+    operators of :func:`~compeg_tpu_torch.ops.idct.scaled_operators`."""
+    if k not in SCALED_ZLEN:
+        raise ValueError(f"scaled decode takes k in 1, 2, 4 (got {k})")
+    if _check_args(rows, nseg, tables, lq_k, geom, k * k):
+        return fused_decode_scaled_reference(rows, nseg, tables, lq_k, geom, k)
+    return _launch_rgba("compeg_fused_decode_scaled", "scaled", rows, nseg,
+                        tables, lq_k, scaled_geometry(geom, k), blk=k)
+
+
+def plane_shapes(geom):
+    """Each component's MCU-padded plane, ``[height_mcus*8*v,
+    width_mcus*8*h]``."""
+    return [(geom.height_mcus * 8 * v, geom.width_mcus * 8 * h)
+            for h, v in geom.samplings]
+
+
+def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
+                        op: torch.Tensor, geom,
+                        exact: bool = False) -> Tuple[torch.Tensor, ...]:
+    """Decode a frame to one u8 plane per component (kernel K3), see
+    :func:`plane_shapes`. ``op`` is ``lq_t`` for the float IDCT, or the
+    integer quantizers when ``exact``."""
+    if _check_args(rows, nseg, tables, op, geom, None if exact else 64):
+        return fused_decode_planes_reference(rows, nseg, tables, op, geom, exact)
+    planes = [torch.empty(s, dtype=torch.uint8, device=rows.device)
+              for s in plane_shapes(geom)]
+    entry = ("compeg_fused_decode_planes_exact" if exact
+             else "compeg_fused_decode_planes")
+    _build.launch(entry, rows, tables.packed, op,
+                  *(planes + [None] * (3 - len(planes))),
+                  params=_params(rows, nseg, tables, geom))
+    _build.LAUNCHES["planes"] += 1
+    return tuple(planes)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the entropy decode's plain twin, a plain IDCT, and the
+# output as gathers (composite) or reshapes (planes).
+# ---------------------------------------------------------------------------
+
+
+def _composite_index(geom, device, blk: int = 8) -> dict:
     """Index maps of the nearest-sampling composite: for every raster pixel,
-    the flat index into ``pixels.reshape(-1)`` (``[nseg * ri, DUS, 64]``
+    the flat index into ``pixels.reshape(-1)`` (``[nseg * ri, DUS, blk*blk]``
     MCU-major) of its luma sample and of its two other component samples
     (``rgba_at``, compeg_tpu/ops/fused.py:290-326)."""
     samp = geom.samplings
     gray = len(samp) == 1
     max_h = 1 if gray else max(h for h, _ in samp)
     max_v = 1 if gray else max(v for _, v in samp)
-    mh, mw = 8 * max_v, 8 * max_h
-    dus = len(geom.du_to_comp)
+    mh, mw = blk * max_v, blk * max_h
+    npx = blk * blk
     Y = torch.arange(geom.height, device=device)[:, None]
     X = torch.arange(geom.width, device=device)[None, :]
     r, x = Y % mh, X % mw
-    base = ((Y // mh) * geom.width_mcus + X // mw) * (dus * 64)
+    base = ((Y // mh) * geom.width_mcus + X // mw) * (len(geom.du_to_comp) * npx)
     yh, yv = samp[0]
     yslot = (r * yv // mh) * yh + (x * yh // mw)
-    yp = ((r * yv * 8 // mh) % 8) * 8 + (x * yh * 8 // mw) % 8
-    maps = {"y": base + yslot * 64 + yp}
+    yp = ((r * yv * blk // mh) % blk) * blk + (x * yh * blk // mw) % blk
+    maps = {"y": base + yslot * npx + yp}
     if not gray:
         ch, cv = samp[1]
-        cp = (r * cv * 8 // mh) * 8 + (x * ch * 8 // mw)
+        cp = (r * cv * blk // mh) * blk + (x * ch * blk // mw)
         slot1 = yh * yv
         slot2 = slot1 + ch * cv
-        maps["c1"] = base + slot1 * 64 + cp
-        maps["c2"] = base + slot2 * 64 + cp
+        maps["c1"] = base + slot1 * npx + cp
+        maps["c2"] = base + slot2 * npx + cp
     return maps
 
 
-def composite_rgba(pixels: torch.Tensor, geom) -> torch.Tensor:
-    """Pixel blocks ``[nseg, ri, DUS, 64]`` int32 -> packed RGBA ``[H, W]``:
-    nearest upsampling, integer BT.601 (45/32, 11/32 + 23/32, 113/64 with
-    arithmetic shifts), clamp, pack."""
+def composite_rgba(pixels: torch.Tensor, geom, blk: int = 8) -> torch.Tensor:
+    """Pixel blocks ``[nseg, ri, DUS, blk*blk]`` int32 -> packed RGBA
+    ``[H, W]`` of ``geom``'s size: nearest upsampling, integer BT.601 (45/32,
+    11/32 + 23/32, 113/64 with arithmetic shifts), clamp, pack."""
     flat = pixels.reshape(-1)
-    maps = _composite_index(geom, pixels.device)
+    maps = _composite_index(geom, pixels.device, blk)
     y = flat[maps["y"]]
     if "c1" not in maps:
-        rr = gg = bb = y
-    elif geom.rgb:
-        rr, gg, bb = y, flat[maps["c1"]], flat[maps["c2"]]
-    else:
-        cb = flat[maps["c1"]] - 128
-        cr = flat[maps["c2"]] - 128
-        rr = y + ((45 * cr) >> 5)
-        gg = y - ((11 * cb + 23 * cr) >> 5)
-        bb = y + ((113 * cb) >> 6)
-    rr, gg, bb = (torch.clamp(v, 0, 255) for v in (rr, gg, bb))
-    return rr | (gg << 8) | (bb << 16) | -16777216  # alpha 0xFF as int32
+        return pack_rgba(y, y, y)
+    c1, c2 = flat[maps["c1"]], flat[maps["c2"]]
+    return pack_rgba(y, c1, c2) if geom.rgb else ycbcr_to_rgba(y, c1, c2)
+
+
+def _coefficients(rows, nseg, tables, geom):
+    return entropy_decode_reference(rows, nseg, tables, geom.ri,
+                                    geom.total_mcus, geom.du_to_comp)
 
 
 def fused_decode_rgba_reference(rows: torch.Tensor, nseg: int,
@@ -113,9 +207,35 @@ def fused_decode_rgba_reference(rows: torch.Tensor, nseg: int,
     """Plain PyTorch version of :func:`fused_decode_rgba`, on any device:
     :func:`entropy_decode_reference` -> :func:`idct_pixels` ->
     :func:`composite_rgba`."""
-    coeffs = entropy_decode_reference(rows, nseg, tables, geom.ri,
-                                      geom.total_mcus, geom.du_to_comp)
+    coeffs = _coefficients(rows, nseg, tables, geom)
     return composite_rgba(idct_pixels(coeffs, lq_t), geom)
+
+
+def fused_decode_rgba_exact_reference(rows: torch.Tensor, nseg: int,
+                                      tables: EntropyTables, qz: torch.Tensor,
+                                      geom) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_decode_rgba_exact`."""
+    coeffs = _coefficients(rows, nseg, tables, geom)
+    return composite_rgba(idct_pixels_int(coeffs, qz), geom)
+
+
+def fused_decode_scaled_reference(rows: torch.Tensor, nseg: int,
+                                  tables: EntropyTables, lq_k: torch.Tensor,
+                                  geom, k: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_decode_scaled`."""
+    coeffs = _coefficients(rows, nseg, tables, geom)
+    return composite_rgba(idct_pixels(coeffs, lq_k), scaled_geometry(geom, k),
+                          blk=k)
+
+
+def fused_decode_planes_reference(rows: torch.Tensor, nseg: int,
+                                  tables: EntropyTables, op: torch.Tensor,
+                                  geom, exact: bool = False
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`fused_decode_planes`."""
+    coeffs = _coefficients(rows, nseg, tables, geom)
+    pixels = idct_pixels_int(coeffs, op) if exact else idct_pixels(coeffs, op)
+    return component_planes(pixels, geom)
 
 
 def rgba_to_rgb(img: torch.Tensor) -> torch.Tensor:

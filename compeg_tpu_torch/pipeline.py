@@ -1,16 +1,22 @@
 """Single-image decode orchestration on PyTorch: the port of
-:mod:`compeg_tpu.pipeline`'s default path.
+:mod:`compeg_tpu.pipeline`'s fused tier.
 
-A frame decode is host preparation plus ONE kernel launch:
+A frame decode is host preparation plus ONE fused kernel launch:
 
     prepare (host: header cache, native scan_info + destuff/split/pack into
-    linear segment rows, device-budget check)
-      -> fused_decode_rgba (kernel K2: entropy -> IDCT -> composite,
-         written straight into the raster)
-      -> packed RGBA [H, W] int32 on the device
+    linear segment rows, device-budget check, stream constants)
+      -> one fused kernel (entropy -> IDCT -> output), chosen by the knobs:
+         K2  fused_decode_rgba        default: float IDCT, nearest chroma
+         K2x fused_decode_rgba_exact  exact_idct: the integer IDCT
+         K3  fused_decode_planes      fancy_upsampling or planes_epilogue
+             (then the torch epilogue of ops/color.py), and decode_ycbcr
+         K2s fused_decode_scaled      decode_scaled(k), k in {1, 2, 4}
+      -> packed RGBA [H, W] int32 on the device (u8 planes for decode_ycbcr)
 
-The host layer is the JAX package's own (``compeg_tpu`` parser, metadata,
-scan, native packer); nothing here imports jax.
+``zrl_compat`` changes only the entropy phase, in every kernel. The staged
+tier (``fused=False``) is not ported yet. The host layer is the JAX
+package's own (``compeg_tpu`` parser, metadata, scan, native packer);
+nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ from compeg_tpu.errors import CompegError
 from compeg_tpu.metadata import ImageData, analyze
 from compeg_tpu.profiling import stage_timer
 
+from .ops import color as C
 from .ops import entropy as E
 from .ops import fused as F
 from .ops import idct as D
+from .ops import int_idct as I
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -77,21 +85,16 @@ class PreparedFrame:
     rows: np.ndarray  # [>= nseg, W] uint32, MSB-first words
     nseg: int
     tables: E.EntropyTables
-    lq_t: torch.Tensor  # [DUS, 64, 64] f32 operators (ops/idct.py)
+    # The IDCT operand of the decoder's mode: the [DUS, 64, 64] f32
+    # operators (ops/idct.py), or the [DUS, 64] int32 quantizers
+    # (ops/int_idct.py) when exact_idct.
+    op: torch.Tensor
     geom: FrameGeometry
     image: ImageData
     packer: str  # "native" or "python"
-
-
-# Knobs of compeg_tpu.Decoder that this port does not implement yet, with
-# their default and the ROADMAP.md queue-1 item that ports them.
-_UNPORTED = {
-    "exact_idct": (False, "queue 1 item 4"),
-    "zrl_compat": (False, "queue 1 item 4"),
-    "fancy_upsampling": (False, "queue 1 item 6"),
-    "planes_epilogue": (None, "queue 1 item 6"),
-    "fused": (True, "queue 1 item 7"),
-}
+    # The stream constants of the frame's header (None without a header
+    # cache entry), where decode_scaled keeps its operators.
+    consts: Optional[Dict] = dataclasses.field(default=None, repr=False)
 
 
 class Decoder:
@@ -104,17 +107,17 @@ class Decoder:
         max_device_bytes: int = 8 << 30,
         pack_threads: Optional[int] = None,
         device="cuda",
-        **knobs,
+        exact_idct: bool = False,
+        zrl_compat: bool = False,
+        fancy_upsampling: bool = False,
+        planes_epilogue: Optional[bool] = None,
+        fused: bool = True,
     ):
-        for name, value in knobs.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"Decoder() got an unexpected keyword {name!r}")
-            default, item = _UNPORTED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"Decoder({name}={value!r}) is not ported to "
-                    f"compeg_tpu_torch yet (ROADMAP.md {item})"
-                )
+        if not fused:
+            raise NotImplementedError(
+                "Decoder(fused=False) is not ported to compeg_tpu_torch yet "
+                "(ROADMAP.md queue 1 item 7)"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -126,6 +129,21 @@ class Decoder:
         if not 1 <= retained_coefficients <= 64:
             raise ValueError("retained_coefficients must be in 1..64")
         self.retained = retained_coefficients
+        # exact_idct: the integer IDCT, byte-identical to
+        # golden.decode_rgb(idct="int") (kernels K2x, K3).
+        self.exact_idct = exact_idct
+        # zrl_compat: the reference's ZRL-advance-17 entropy semantics; with
+        # exact_idct (and retained_coefficients=32, the reference's default)
+        # the documented "Compeg-compat" configuration (PARITY.md).
+        self.zrl_compat = zrl_compat
+        # fancy_upsampling: libjpeg's triangle-filter chroma (K3 + the
+        # ops/color.py epilogue). planes_epilogue: True routes nearest
+        # upsampling through K3 + the epilogue too, bit-identical to K2's
+        # in-kernel composite; None (auto) and False keep the composite for
+        # nearest. Fancy always takes K3, as the JAX package's tiled fused
+        # path does whatever planes_epilogue says.
+        self.fancy = fancy_upsampling
+        self.planes_epilogue = planes_epilogue
         # Device-buffer budget per frame, the analogue of the reference's
         # MAX_RESTART_INTERVALS dispatch cap: a degenerate geometry fails
         # with a clean CompegError instead of an out-of-memory error.
@@ -222,9 +240,12 @@ class Decoder:
             log.info("image has %d restart intervals (parallelism); device "
                      "decode is most efficient above ~10000", nseg)
             self._warned_parallelism = True
-        # Device budget: the raster output (MCU-padded bound) plus the scan
-        # words, which are at most the scan's bytes plus a word per segment.
-        est = (img.total_mcus * img.mcu_width * img.mcu_height * 4
+        # Device budget: the raster output (MCU-padded bound), the u8
+        # component planes of the planes kernel (one byte per sample), and
+        # the scan words, which are at most the scan's bytes plus a word per
+        # segment.
+        est = (img.total_mcus * (img.mcu_width * img.mcu_height * 4
+                                 + img.dus_per_mcu * 64)
                + len(img.scan_data) + 4 * nseg)
         if est > self.max_device_bytes:
             raise CompegError(
@@ -235,19 +256,30 @@ class Decoder:
             )
         with stage_timer("preprocess"):
             rows, packer = self._pack(img)
-        hit = consts.get(self.retained) if consts is not None else None
-        if hit is None:
-            hit = (
-                E.tables_from_image(img, self.device),
-                D.idct_operators(D.qz_by_slot_array(img), self.retained,
-                                 self.device),
-                FrameGeometry.from_image(img),
-            )
-            if consts is not None:
-                consts[self.retained] = hit
-        tables, lq_t, geom = hit
-        return PreparedFrame(rows=rows, nseg=nseg, tables=tables, lq_t=lq_t,
-                             geom=geom, image=img, packer=packer)
+        tables, geom = _stream_const(consts, "frame", lambda: (
+            E.tables_from_image(img, self.device, zrl17=self.zrl_compat),
+            FrameGeometry.from_image(img)))
+        op = self._operator(img, consts, 8)
+        return PreparedFrame(rows=rows, nseg=nseg, tables=tables, op=op,
+                             geom=geom, image=img, packer=packer,
+                             consts=consts)
+
+    def _operator(self, img: ImageData, consts: Optional[Dict], scale: int):
+        """The IDCT operand at ``scale`` (8: the decoder's own mode; k: the
+        scaled decode's float operators), keyed like the JAX package's
+        ``_stream_consts`` by retained count, exact flag and scale."""
+        exact = self.exact_idct and scale == 8
+
+        def make():
+            qz = D.qz_by_slot_array(img)
+            if exact:
+                return I.int_quantizers(qz, self.retained, self.device)
+            if scale != 8:
+                return D.scaled_operators(qz, scale, self.retained,
+                                          self.device)
+            return D.idct_operators(qz, self.retained, self.device)
+
+        return _stream_const(consts, ("op", self.retained, exact, scale), make)
 
     # -- device side -------------------------------------------------------
 
@@ -256,10 +288,19 @@ class Decoder:
         rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
         return rows.to(self.device)
 
+    def _planes(self, pf: PreparedFrame):
+        return F.fused_decode_planes(self.upload(pf), pf.nseg, pf.tables,
+                                     pf.op, pf.geom, exact=self.exact_idct)
+
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
         """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device."""
-        return F.fused_decode_rgba(self.upload(pf), pf.nseg, pf.tables,
-                                   pf.lq_t, pf.geom)
+        g = pf.geom
+        if self.fancy or self.planes_epilogue is True:
+            return C.finalize_planes(self._planes(pf), g.samplings, g.width,
+                                     g.height, fancy=self.fancy, rgb=g.rgb)
+        decode = (F.fused_decode_rgba_exact if self.exact_idct
+                  else F.fused_decode_rgba)
+        return decode(self.upload(pf), pf.nseg, pf.tables, pf.op, g)
 
     def decode(self, data) -> np.ndarray:
         """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array."""
@@ -281,17 +322,39 @@ class Decoder:
         return DecodeOp(result=self.decode_prepared(pf), geometry=pf.geom,
                         geometry_changed=changed)
 
-    def decode_scaled(self, data, scale_blocks: int):
-        raise NotImplementedError(
-            "decode_scaled is not ported to compeg_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 5)"
-        )
+    def decode_ycbcr(self, data) -> list:
+        """Decode to raw per-component planes, no chroma upsampling and no
+        colour conversion: a list of ``[Hc, Wc]`` u8 arrays in frame
+        component order (Y, Cb, Cr; one for gray), ``Hc = ceil(H*v/max_v)``,
+        ``Wc = ceil(W*h/max_h)`` (T.81 A.1.1). Kernel K3, with the integer
+        IDCT under ``exact_idct``."""
+        pf = self.prepare(data)
+        g = pf.geom
+        max_h = max(h for h, _ in g.samplings)
+        max_v = max(v for _, v in g.samplings)
+        return [
+            p[: -(-g.height * v // max_v), : -(-g.width * h // max_h)]
+            .cpu().numpy()
+            for p, (h, v) in zip(self._planes(pf), g.samplings)
+        ]
 
-    def decode_ycbcr(self, data):
-        raise NotImplementedError(
-            "decode_ycbcr is not ported to compeg_tpu_torch yet "
-            "(ROADMAP.md queue 1 item 6)"
-        )
+    def decode_scaled(self, data, scale_blocks: int) -> np.ndarray:
+        """Thumbnail decode at ``scale_blocks/8`` scale (k in {1, 2, 4, 8}):
+        ``[ceil(H*k/8), ceil(W*k/8), 3]`` u8 RGB through the k-point scaled
+        IDCT (kernel K2s), the libjpeg ``scale_denom`` feature. k = 8 is
+        :meth:`decode`. Always the float IDCT and nearest chroma, as in the
+        JAX package: ``exact_idct`` and ``fancy_upsampling`` do not apply."""
+        if scale_blocks == 8:
+            return self.decode(data)
+        if scale_blocks not in (1, 2, 4):
+            raise CompegError(
+                f"scale_blocks must be 1, 2, 4, or 8 (got {scale_blocks})"
+            )
+        pf = self.prepare(data)
+        lq_k = self._operator(pf.image, pf.consts, scale_blocks)
+        out = F.fused_decode_scaled(self.upload(pf), pf.nseg, pf.tables, lq_k,
+                                    pf.geom, scale_blocks)
+        return F.rgba_to_rgb(out).cpu().numpy()
 
 
 @dataclass
@@ -320,6 +383,17 @@ class DecodeOp:
 
     def __dlpack_device__(self):
         return self.result.__dlpack_device__()
+
+
+def _stream_const(consts: Optional[Dict], key, make):
+    """``consts[key]``, made and stored on a miss (made every time when the
+    frame has no header cache entry)."""
+    hit = consts.get(key) if consts is not None else None
+    if hit is None:
+        hit = make()
+        if consts is not None:
+            consts[key] = hit
+    return hit
 
 
 def decode_rgb(data: bytes, retained_coefficients: int = 64,

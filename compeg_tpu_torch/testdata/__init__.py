@@ -2,9 +2,12 @@
 imported (``chip_smoke.py`` on the card).
 
 ``smoke.npz`` holds small streams of every supported sampling with the golden
-decoder's raw coefficients and RGB, and for ``bench_assets/bench4k.jpg`` the
-digests of golden's coefficients and RGB plus some of golden's RGB rows.
-tests/test_torch_smoke_vectors.py writes it and checks it against golden.
+decoder's raw coefficients, float and integer RGB, integer planes, scaled RGB
+and fancy RGB; a ZRL stream and a stream of int32-wrapping blocks with their
+answers; and for ``bench_assets/bench4k.jpg`` the digests of golden's
+coefficients, RGB, integer RGB, integer planes and fancy RGB plus some of
+golden's float and scaled RGB rows. tests/test_torch_smoke_vectors.py writes
+it and checks it against golden.
 """
 
 from __future__ import annotations

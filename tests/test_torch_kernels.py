@@ -1,7 +1,8 @@
 """compeg_tpu_torch's CUDA kernels against their plain PyTorch versions and
-the golden decoder on small streams: K1 (entropy) exactly, K2 (fused decode)
-within 1, the f32 IDCT summing in another order. These need a CUDA device
-and nvcc (the kernels have no CPU mode) and skip without one;
+the golden decoder on small streams: K1 (entropy), K2x (exact IDCT) and K3
+(planes, integer IDCT) exactly, K2 (fused decode), K3 with the float IDCT
+and K2s (scaled) within 1, the f32 IDCT summing in another order. These need
+a CUDA device and nvcc (the kernels have no CPU mode) and skip without one;
 ``python3 chip_smoke.py`` runs the same checks and the 4K frame on the card.
 
 What the CPU can check of the kernels' interface runs here: the launch
@@ -17,10 +18,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from compeg_tpu import encoder, golden  # noqa: E402
+from compeg_tpu.tables import ZIGZAG  # noqa: E402
 from compeg_tpu_torch.ops import _build  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
+from compeg_tpu_torch.ops import idct as D  # noqa: E402
 from compeg_tpu_torch.pipeline import Decoder  # noqa: E402
+from test_torch_smoke_vectors import golden_planes, zrl_stream  # noqa: E402
 
 CASES = [("422", 1), ("444", 1), ("420", 1), ("440", 1), ("411", 1),
          ("gray", 1), ("422", 2), ("422", 5), ("422", None)]
@@ -33,12 +37,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def prepared(device, sampling, ri, test_image, h=24, w=40):
+def prepared(device, sampling, ri, test_image, h=24, w=40, **knobs):
     data = encoder.encode(test_image(h, w, "noise"), sampling=sampling,
                           quality=90, restart_interval_mcus=ri)
-    dec = Decoder(device=device)
+    dec = Decoder(device=device, **knobs)
     pf = dec.prepare(data)
     return data, pf, dec.upload(pf)
+
+
+def counted(key, fn, *args, **kwargs):
+    """fn(*args) and check that it launched kernel ``key`` exactly once."""
+    before = dict(_build.LAUNCHES)
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = dict(before, **{key: before[key] + 1})
+    assert _build.LAUNCHES == want
+    return out
+
+
+def as_rgb(img):
+    return F.rgba_to_rgb(img).cpu().numpy()
 
 
 @pytest.mark.parametrize("sampling,ri", CASES)
@@ -58,7 +76,7 @@ def test_k1_equals_plain_and_golden(cuda, sampling, ri, test_image):
 @pytest.mark.parametrize("sampling,ri", CASES)
 def test_k2_within_one_of_plain(cuda, sampling, ri, test_image):
     data, pf, rows = prepared(cuda, sampling, ri, test_image, h=17, w=37)
-    args = (rows, pf.nseg, pf.tables, pf.lq_t, pf.geom)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
     before = _build.LAUNCHES["fused"]
     got = F.fused_decode_rgba(*args)
     assert _build.LAUNCHES["fused"] == before + 1
@@ -69,6 +87,98 @@ def test_k2_within_one_of_plain(cuda, sampling, ri, test_image):
     assert (got_rgba[..., 3] == 255).all()
     gold = golden.decode_rgb(data)
     assert np.abs(got_rgba[..., :3].astype(int) - gold.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("sampling,ri", CASES)
+def test_k2x_equals_plain_and_golden(cuda, sampling, ri, test_image):
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=17, w=37,
+                              exact_idct=True)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
+    got = counted("fused_exact", F.fused_decode_rgba_exact, *args)
+    assert torch.equal(got, F.fused_decode_rgba_exact_reference(*args))
+    assert np.array_equal(as_rgb(got), golden.decode_rgb(data, idct="int"))
+
+
+@pytest.mark.parametrize("retained", [64, 32])
+def test_k2x_compat_equals_golden(cuda, retained):
+    """The ZRL stream under zrl_compat: K1 and K2x against golden's compat
+    decode."""
+    data = zrl_stream()
+    dec = Decoder(device=cuda, zrl_compat=True, exact_idct=True,
+                  retained_coefficients=retained)
+    pf = dec.prepare(data)
+    rows = dec.upload(pf)
+    g = pf.geom
+    k1 = counted("entropy", E.entropy_decode, rows, pf.nseg, pf.tables, g.ri,
+                 g.total_mcus, g.du_to_comp)
+    assert np.array_equal(
+        E.coefficients_natural_order(k1, g.total_mcus).cpu().numpy(),
+        golden.decode_coefficients(pf.image, dequant=False, zrl17=True))
+    got = counted("fused_exact", F.fused_decode_rgba_exact, rows, pf.nseg,
+                  pf.tables, pf.op, g)
+    assert np.array_equal(as_rgb(got), golden.decode_rgb(
+        data, retained_coefficients=retained, idct="int", zrl17=True))
+
+
+@pytest.mark.parametrize("sampling,ri", CASES)
+@pytest.mark.parametrize("exact", [True, False])
+def test_k3_equals_plain_and_golden(cuda, sampling, ri, exact, test_image):
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=17, w=37,
+                              exact_idct=exact)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
+    got = counted("planes", F.fused_decode_planes, *args, exact=exact)
+    want = F.fused_decode_planes_reference(*args, exact=exact)
+    assert [tuple(p.shape) for p in got] == F.plane_shapes(pf.geom)
+    coeffs = golden.decode_coefficients(pf.image, dequant=False)
+    pix = (golden.idct_pixels_int(coeffs, pf.image) if exact
+           else golden.idct_pixels_raw(coeffs, pf.image))
+    gold = golden.assemble_planes(pf.image, pix)
+    for p, q, r in zip(got, want, gold):
+        if exact:
+            assert torch.equal(p, q)
+            assert np.array_equal(p.cpu().numpy(), r)
+        else:
+            assert (p.int() - q.int()).abs().max() <= 1
+            assert np.abs(p.cpu().numpy().astype(int) - r).max() <= 1
+    ycbcr = Decoder(device=cuda, exact_idct=True).decode_ycbcr(data)
+    for p, q in zip(ycbcr, golden_planes(pf.image, golden.idct_pixels_int(
+            coeffs, pf.image))):
+        assert np.array_equal(p, q)
+
+
+@pytest.mark.parametrize("sampling,ri", CASES)
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_k2s_within_one_of_plain_and_golden(cuda, sampling, ri, k,
+                                            test_image):
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=17, w=37)
+    lq_k = D.scaled_operators(D.qz_by_slot_array(pf.image), k, device=cuda)
+    args = (rows, pf.nseg, pf.tables, lq_k, pf.geom, k)
+    got = as_rgb(counted("scaled", F.fused_decode_scaled, *args)).astype(int)
+    want = as_rgb(F.fused_decode_scaled_reference(*args))
+    gold = golden.decode_rgb(data, scale_blocks=k)
+    assert got.shape == want.shape == gold.shape
+    assert np.abs(got - want).max() <= 1
+    assert np.abs(got - gold).max() <= 1
+
+
+def test_zigzag_table_mirrors_compeg_tables():
+    """csrc/int_idct.cuh's kZigzag is compeg_tpu.tables.ZIGZAG."""
+    path = os.path.join(_build.CSRC, "int_idct.cuh")
+    with open(path) as f:
+        body = re.search(r"kZigzag\[64\] = \{(.*?)\};", f.read(), re.S)[1]
+    assert [int(v) for v in re.findall(r"\d+", body)] == ZIGZAG.tolist()
+
+
+def test_entry_points_are_defined_in_the_source():
+    """Every C entry point the binding declares exists in csrc/decode.cu
+    with as many pointer arguments, plus the params and the stream."""
+    with open(os.path.join(_build.CSRC, "decode.cu")) as f:
+        src = f.read()
+    for name, n in _build.ENTRY_POINTS.items():
+        sig = re.search(name + r"\((.*?)\)", src, re.S)[1]
+        args = [a for a in sig.split(",")]
+        assert len(args) == n + 2, name
+        assert "DecodeParams" in args[n] and "stream" in args[n + 1], name
 
 
 def test_params_mirror_the_c_struct():
@@ -88,6 +198,7 @@ def test_params_layout_of_420():
                            samplings=((2, 2), (1, 1), (1, 1)), width=40,
                            height=24, width_mcus=3)
     assert (p.dus, p.ncomp) == (6, 3)
+    assert (p.zrl17, p.blk, p.zlen) == (0, 8, 64)  # the defaults
     assert list(p.comp_slot) == [0, 4, 5]
     assert list(p.du_to_comp) == [0, 0, 0, 0, 1, 2]
     with pytest.raises(ValueError):
@@ -96,7 +207,7 @@ def test_params_layout_of_420():
 
 def test_cpu_tensors_take_the_plain_version(test_image):
     data, pf, rows = prepared("cpu", "422", 2, test_image)
-    args = (rows, pf.nseg, pf.tables, pf.lq_t, pf.geom)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
     before = dict(_build.LAUNCHES)
     assert torch.equal(F.fused_decode_rgba(*args),
                        F.fused_decode_rgba_reference(*args))
@@ -113,4 +224,4 @@ def test_wrappers_check_their_inputs(test_image):
         E.entropy_decode(rows[:1], pf.nseg, pf.tables, g.ri, g.total_mcus,
                          g.du_to_comp)
     with pytest.raises(ValueError, match="lq_t"):
-        F.fused_decode_rgba(rows, pf.nseg, pf.tables, pf.lq_t[:1], g)
+        F.fused_decode_rgba(rows, pf.nseg, pf.tables, pf.op[:1], g)

@@ -105,23 +105,12 @@ def test_device_budget_raises(test_image):
         Decoder(device="cpu", max_device_bytes=1024).decode(data)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("exact_idct", True), ("zrl_compat", True), ("fancy_upsampling", True),
-    ("planes_epilogue", True), ("fused", False),
-])
+@pytest.mark.parametrize("knob,value", [("fused", False)])
 def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    """The staged tier (fused=False) is the one knob not ported yet."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         Decoder(device="cpu", **{knob: value})
-    Decoder(device="cpu", **{knob: {"fused": True, "planes_epilogue": None}
-                             .get(knob, False)})  # the default is accepted
-
-
-@pytest.mark.parametrize("method", ["decode_scaled", "decode_ycbcr"])
-def test_unported_entry_points_raise(method, test_image):
-    data = encoder.encode(test_image(16, 16), sampling="422")
-    args = (data, 2) if method == "decode_scaled" else (data,)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        getattr(Decoder(device="cpu"), method)(*args)
+    Decoder(device="cpu", **{knob: True})  # the default is accepted
 
 
 def test_unknown_knob_is_refused():
@@ -140,7 +129,8 @@ def test_cuda_decoder_raises_without_a_gpu():
 
 def test_port_imports_no_jax():
     """A fresh interpreter decodes on the CPU through compeg_tpu_torch
-    without ever importing jax."""
+    without ever importing jax: the default, an exact, a planes (fancy and
+    decode_ycbcr) and a scaled decode."""
     code = (
         "import sys, numpy as np\n"
         "import compeg_tpu_torch as T\n"
@@ -149,6 +139,15 @@ def test_port_imports_no_jax():
         ".reshape(16, 24, 3)\n"
         "data = encoder.encode(img, sampling='420', restart_interval_mcus=1)\n"
         "got = T.Decoder(device='cpu').decode(data)\n"
+        "exact = T.Decoder(device='cpu', exact_idct=True).decode(data)\n"
+        "fancy = T.Decoder(device='cpu', fancy_upsampling=True).decode(data)\n"
+        "planes = T.Decoder(device='cpu').decode_ycbcr(data)\n"
+        "thumb = T.Decoder(device='cpu').decode_scaled(data, 2)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert [p.shape for p in planes] == [(16, 24), (8, 12), (8, 12)]\n"
+        "assert thumb.shape == (4, 6, 3) and fancy.shape == (16, 24, 3)\n"
+        # golden's integer IDCT is jax-free; its float IDCT is not
+        "assert np.array_equal(exact, golden.decode_rgb(data, idct='int'))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         # golden's float IDCT imports compeg_tpu.ops.idct, which imports jax
         "d = np.abs(got.astype(int) - golden.decode_rgb(data).astype(int))\n"

@@ -1,12 +1,22 @@
 """The reference data of chip_smoke.py, compeg_tpu_torch/testdata/smoke.npz.
 
 chip_smoke.py runs on the card and imports nothing of the JAX package, so
-golden's answers travel to it in this file: small streams of every supported
-sampling with golden's raw coefficients and RGB, and, for the 4K benchmark
-frame, digests of golden's coefficients and RGB plus three of golden's MCU
-rows of RGB. These tests recompute all of it with compeg_tpu's encoder and
-golden decoder and must find the file's contents; the plain PyTorch K1 must
-reproduce the stored coefficients exactly.
+golden's answers travel to it in this file:
+
+* small streams of every supported sampling with golden's raw coefficients,
+  float RGB, integer RGB, integer planes (cropped as ``decode_ycbcr`` crops
+  them), scaled RGB for k = 1, 2, 4, and the fancy + integer RGB of the JAX
+  package's staged colour functions over golden's integer planes;
+* the ZRL stream of tests/test_compat.py with golden's compat answers, and a
+  stream of random int16-range blocks whose integer IDCT wraps int32;
+* for the 4K benchmark frame, digests of golden's coefficients, float and
+  integer RGB, integer planes and fancy + integer RGB, and golden's float
+  and scaled RGB on three MCU rows. All of it comes from one
+  ``decode_coefficients`` call.
+
+These tests recompute all of it with compeg_tpu's encoder, golden decoder
+and colour functions and must find the file's contents; the port's plain
+versions must reproduce what chip_smoke holds the kernels to.
 
 After changing a case, rewrite the file with
 
@@ -21,7 +31,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from compeg_tpu import analyze, encoder, golden  # noqa: E402
+from compeg_tpu import huffman as H  # noqa: E402
+from compeg_tpu.ops import color as JC  # noqa: E402
+from compeg_tpu.ops.luts import idct_matrix_zigzag  # noqa: E402
 from compeg_tpu_torch import testdata  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.pipeline import Decoder  # noqa: E402
@@ -31,6 +46,7 @@ BENCH = os.path.join(ROOT, "bench_assets", "bench4k.jpg")
 # First pixel row of three 4:2:2 MCU rows of the 4K frame (8 rows each):
 # the top, the middle and the bottom of the picture.
 BENCH_MCU_ROWS = (0, 1080, 2152)
+SCALES = (1, 2, 4)
 
 
 def smoke_image(h, w, seed=0):
@@ -52,6 +68,138 @@ def rgb_ids(data: bytes) -> bytes:
         for i, cid in enumerate(b"RGB"):
             buf[at + first + i * stride] = cid
     return bytes(buf)
+
+
+def zrl_stream() -> bytes:
+    """The stream of tests/test_compat.py: isolated high-zigzag coefficients,
+    so the encoder emits ZRL symbols, the only place where the spec's +16
+    and the reference's +17 differ."""
+    L = idct_matrix_zigzag(64)  # [64 pix, 64 zig]
+    rng = np.random.RandomState(7)
+    H_, W_ = 32, 48
+    img = np.zeros((H_, W_), np.uint8)
+    for by in range(H_ // 8):
+        for bx in range(W_ // 8):
+            zc = np.zeros(64, np.float32)
+            pos = rng.choice([20, 25, 35, 45, 55, 63])
+            zc[pos] = rng.choice([300, -300, 500])
+            if rng.rand() < 0.5:
+                zc[min(63, pos + rng.randint(1, 17))] = 200
+            pix = zc @ L.T + 128.0
+            img[by * 8:(by + 1) * 8, bx * 8:(bx + 1) * 8] = np.clip(
+                np.round(pix), 0, 255).astype(np.uint8).reshape(8, 8)
+    rgb = np.stack([img, img, img], -1)
+    return encoder.encode(rgb, sampling="444", quality=97,
+                          restart_interval_mcus=1)
+
+
+def _magnitude(v: int):
+    if v == 0:
+        return 0, 0
+    s = abs(v).bit_length()
+    return s, v if v > 0 else v + (1 << s) - 1
+
+
+def coefficient_stream(blocks: np.ndarray, q: np.ndarray) -> bytes:
+    """A gray ``8 x 8n`` JPEG, restart interval 1, whose n blocks carry the
+    raw zigzag coefficients ``blocks [n, 64]`` (|value| <= 1023) under the
+    zigzag quantizer ``q [64]`` (1..255), coded with the Annex K tables."""
+    n = len(blocks)
+    base = encoder.encode(np.zeros((8, 8 * n), np.uint8), sampling="gray",
+                          restart_interval_mcus=1)
+    head = bytearray(base[:analyze(base).scan_offset])
+    at = head.find(b"\xff\xdb") + 5  # marker, length, Pq/Tq
+    head[at:at + 64] = bytes(int(v) for v in q)
+    tables = H.default_tables()
+    dc, ac = tables[(0, 0)].encode_map(), tables[(1, 0)].encode_map()
+    bw = encoder.BitWriter()
+    for i, zz in enumerate(blocks):
+        if i:
+            bw.raw_marker(0xD0 + (i - 1) % 8)
+        s, bits = _magnitude(int(zz[0]))  # the predictor restarts at 0
+        bw.put(*dc[s])
+        bw.put(bits, s)
+        nz = np.nonzero(zz[1:])[0]
+        last = int(nz[-1]) + 1 if len(nz) else 0
+        run = 0
+        for k in range(1, last + 1):
+            if zz[k] == 0:
+                run += 1
+                continue
+            while run > 15:
+                bw.put(*ac[0xF0])
+                run -= 16
+            s, bits = _magnitude(int(zz[k]))
+            bw.put(*ac[(run << 4) | s])
+            bw.put(bits, s)
+            run = 0
+        if last != 63:
+            bw.put(*ac[0x00])
+    bw.pad_to_byte()
+    return bytes(head) + bytes(bw.out) + b"\xff\xd9"
+
+
+def wrap_stream() -> bytes:
+    """512 blocks of random coefficients whose dequantized values span the
+    int16 range (a quarter of them zero), under quantizers of 32-48: the
+    integer IDCT's int32 sums wrap on most of them."""
+    rng = np.random.default_rng(11)
+    blocks = rng.integers(-1023, 1024, (512, 64))
+    blocks[rng.random(blocks.shape) < 0.25] = 0
+    return coefficient_stream(blocks, rng.integers(32, 49, 64))
+
+
+def golden_rgb(img, pixels: np.ndarray, k: int = 8) -> np.ndarray:
+    """golden.decode_rgb's tail (golden.py:397-415) over pixels of golden's
+    own IDCTs, so that one decode_coefficients call serves every answer."""
+    planes = golden.assemble_planes(img, pixels, blk=k)
+    hs, ws = golden.scaled_size(img, k)
+    if len(planes) == 1:
+        y = planes[0][:hs, :ws]
+        return np.stack([y, y, y], axis=-1)
+    up = []
+    for p, c in zip(planes, img.components):
+        p = np.repeat(p, img.max_h // c.h_sample, axis=1)
+        p = np.repeat(p, img.max_v // c.v_sample, axis=0)
+        up.append(p[:hs, :ws])
+    if img.color_space == "rgb":
+        return np.stack(up, axis=-1)
+    return golden.ycbcr_to_rgb_reference(*up)
+
+
+def ycbcr_crops(img):
+    """``decode_ycbcr``'s plane sizes: ceil(H*v/max_v) x ceil(W*h/max_h)."""
+    return [(-(-img.height * c.v_sample // img.max_v),
+             -(-img.width * c.h_sample // img.max_h)) for c in img.components]
+
+
+def golden_planes(img, pixels: np.ndarray):
+    """Golden's component planes, cropped as ``decode_ycbcr`` crops them."""
+    return [p[:h, :w] for p, (h, w) in
+            zip(golden.assemble_planes(img, pixels), ycbcr_crops(img))]
+
+
+def jax_fancy_rgb(img, planes) -> np.ndarray:
+    """Fancy upsampling + colour with the JAX package's staged functions
+    (compeg_tpu.ops.color, as finalize_rgb applies them) over MCU-padded
+    planes: vertical triangle filter, then horizontal (4:1:1 replicates)."""
+    up = []
+    for p, c in zip(planes, img.components):
+        fx, fy = img.max_h // c.h_sample, img.max_v // c.v_sample
+        p = jnp.asarray(p, jnp.int32)
+        if fy > 1:
+            p = JC.upsample_fancy_v(p)
+        if fx == 2:
+            p = JC.upsample_fancy_h(p)
+        elif fx > 1:
+            p = JC.upsample_nearest(p, fx, 1)
+        up.append(p[:img.height, :img.width])
+    if len(up) == 1:
+        y = np.asarray(up[0]).astype(np.uint8)
+        return np.stack([y, y, y], axis=-1)
+    if img.color_space == "rgb":
+        return np.asarray(jnp.stack(up, axis=-1)).astype(np.uint8)
+    return np.asarray(JC.ycbcr_to_rgb(*up))
 
 
 # (label, sampling, restart interval, height, width, retained, RGB-ID)
@@ -76,26 +224,67 @@ def case_stream(i: int) -> bytes:
 def case_vectors(i: int) -> dict:
     data = case_stream(i)
     retained = CASES[i][5]
-    return {
+    img = analyze(data)
+    coeffs = golden.decode_coefficients(img, dequant=False)
+    pix_int = golden.idct_pixels_int(coeffs, img, retained)
+    out = {
         f"jpeg_{i}": np.frombuffer(data, np.uint8),
-        f"coeffs_{i}": golden.decode_coefficients(analyze(data), dequant=False),
+        f"coeffs_{i}": coeffs,
         f"rgb_{i}": golden.decode_rgb(data, retained_coefficients=retained),
+        f"rgbi_{i}": golden.decode_rgb(data, retained_coefficients=retained,
+                                       idct="int"),
+        f"fancy_{i}": jax_fancy_rgb(img, golden.assemble_planes(img, pix_int)),
     }
+    for c, p in enumerate(golden_planes(img, pix_int)):
+        out[f"plane{c}_{i}"] = p
+    for k in SCALES:
+        out[f"rgbs{k}_{i}"] = golden.decode_rgb(
+            data, retained_coefficients=retained, scale_blocks=k)
+    return out
+
+
+def compat_vectors() -> dict:
+    """The ZRL stream with golden's compat answers (zrl17, integer IDCT) at
+    retained 64 and 32, and the wrap stream with golden's integer RGB."""
+    zrl, wrap = zrl_stream(), wrap_stream()
+    out = {"zrl_jpeg": np.frombuffer(zrl, np.uint8),
+           "wrap_jpeg": np.frombuffer(wrap, np.uint8),
+           "wrap_rgbi": golden.decode_rgb(wrap, idct="int")}
+    for r in (64, 32):
+        out[f"zrl_rgbi_{r}"] = golden.decode_rgb(
+            zrl, retained_coefficients=r, idct="int", zrl17=True)
+    return out
 
 
 def bench4k_vectors() -> dict:
     with open(BENCH, "rb") as f:
         data = f.read()
-    coeffs = golden.decode_coefficients(analyze(data), dequant=False)
-    rgb = golden.decode_rgb(data)
+    img = analyze(data)
+    coeffs = golden.decode_coefficients(img, dequant=False)
+    rgb = golden_rgb(img, golden.idct_pixels_raw(coeffs, img))
+    pix_int = golden.idct_pixels_int(coeffs, img)
     rows = np.concatenate([np.arange(r, r + 8) for r in BENCH_MCU_ROWS])
-    return {
+    out = {
         "bench4k_jpeg_sha256": np.array(hashlib.sha256(data).hexdigest()),
         "bench4k_coeffs_sha256": np.array(testdata.digest(coeffs)),
         "bench4k_rgb_sha256": np.array(testdata.digest(rgb)),
         "bench4k_rows": rows.astype(np.int32),
         "bench4k_rgb_rows": rgb[rows],
+        "bench4k_rgbi_sha256": np.array(
+            testdata.digest(golden_rgb(img, pix_int))),
+        "bench4k_fancy_sha256": np.array(testdata.digest(
+            jax_fancy_rgb(img, golden.assemble_planes(img, pix_int)))),
     }
+    for c, p in enumerate(golden_planes(img, pix_int)):
+        out[f"bench4k_plane{c}_sha256"] = np.array(testdata.digest(p))
+    for k in SCALES:
+        # The scaled frame's MCU rows are k pixel rows high.
+        rk = np.concatenate([np.arange(r * k // 8, r * k // 8 + k)
+                             for r in BENCH_MCU_ROWS])
+        scaled = golden_rgb(img, golden.idct_pixels_scaled(coeffs, img, k), k)
+        out[f"bench4k_rows{k}"] = rk.astype(np.int32)
+        out[f"bench4k_rgbs{k}_rows"] = scaled[rk]
+    return out
 
 
 def write_vectors(path: str = testdata.PATH) -> None:
@@ -105,6 +294,7 @@ def write_vectors(path: str = testdata.PATH) -> None:
     }
     for i in range(len(CASES)):
         arrays.update(case_vectors(i))
+    arrays.update(compat_vectors())
     arrays.update(bench4k_vectors())
     np.savez_compressed(path, **arrays)
 
@@ -114,13 +304,21 @@ def stored():
     return testdata.load()
 
 
+def assert_stored(stored, want: dict):
+    for key, value in want.items():
+        assert stored[key].dtype == value.dtype, key
+        assert np.array_equal(stored[key], value), key
+
+
 @pytest.mark.parametrize("i", range(len(CASES)), ids=[c[0] for c in CASES])
 def test_stream_vectors_are_golden(i, stored):
     assert str(stored["labels"][i]) == CASES[i][0]
     assert int(stored["retained"][i]) == CASES[i][5]
-    for key, want in case_vectors(i).items():
-        assert stored[key].dtype == want.dtype, key
-        assert np.array_equal(stored[key], want), key
+    assert_stored(stored, case_vectors(i))
+
+
+def test_compat_vectors_are_golden(stored):
+    assert_stored(stored, compat_vectors())
 
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=[c[0] for c in CASES])
@@ -135,14 +333,52 @@ def test_plain_k1_reproduces_stored_coefficients(i, stored):
     assert np.array_equal(got, stored[f"coeffs_{i}"])
 
 
+@pytest.mark.parametrize("i", [0, 2, 5, 7, 11, 12], ids=lambda i: CASES[i][0])
+def test_plain_modes_reproduce_stored_answers(i, stored):
+    """What chip_smoke holds K2x, K3 and K2s to on the card, here through
+    their plain twins: integer RGB and planes exactly, scaled within 1."""
+    data = stored[f"jpeg_{i}"].tobytes()
+    r = int(stored["retained"][i])
+    exact = Decoder(device="cpu", exact_idct=True, retained_coefficients=r)
+    assert np.array_equal(exact.decode(data), stored[f"rgbi_{i}"])
+    for c, p in enumerate(exact.decode_ycbcr(data)):
+        assert np.array_equal(p, stored[f"plane{c}_{i}"]), c
+    fancy = Decoder(device="cpu", exact_idct=True, fancy_upsampling=True,
+                    retained_coefficients=r)
+    assert np.array_equal(fancy.decode(data), stored[f"fancy_{i}"])
+    dec = Decoder(device="cpu", retained_coefficients=r)
+    for k in SCALES:
+        got = dec.decode_scaled(data, k).astype(int)
+        want = stored[f"rgbs{k}_{i}"]
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1, k
+
+
+@pytest.mark.parametrize("i", [0, 3, 4, 5, 9, 11], ids=lambda i: CASES[i][0])
+def test_golden_tail_equals_decode_rgb(i):
+    """golden_rgb, which derives the 4K answers from one coefficient decode,
+    is golden.decode_rgb's own tail: float, integer and scaled."""
+    data = case_stream(i)
+    img = analyze(data)
+    coeffs = golden.decode_coefficients(img, dequant=False)
+    assert np.array_equal(golden_rgb(img, golden.idct_pixels_raw(coeffs, img)),
+                          golden.decode_rgb(data))
+    assert np.array_equal(golden_rgb(img, golden.idct_pixels_int(coeffs, img)),
+                          golden.decode_rgb(data, idct="int"))
+    for k in SCALES:
+        pix = golden.idct_pixels_scaled(coeffs, img, k)
+        assert np.array_equal(golden_rgb(img, pix, k),
+                              golden.decode_rgb(data, scale_blocks=k)), k
+
+
 def test_bench4k_vectors_are_golden(stored):
-    """The 4K frame's golden decode on the CPU (about 16 s, 0.8 GB)."""
+    """The 4K frame's golden answers on the CPU (one coefficient decode)."""
     want = bench4k_vectors()
-    for key in ("bench4k_jpeg_sha256", "bench4k_coeffs_sha256",
-                "bench4k_rgb_sha256"):
-        assert str(stored[key]) == str(want[key]), key
-    assert np.array_equal(stored["bench4k_rows"], want["bench4k_rows"])
-    assert np.array_equal(stored["bench4k_rgb_rows"], want["bench4k_rgb_rows"])
+    for key, value in want.items():
+        if value.dtype.kind == "U":
+            assert str(stored[key]) == str(value), key
+        else:
+            assert np.array_equal(stored[key], value), key
 
 
 if __name__ == "__main__":
