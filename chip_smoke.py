@@ -2,21 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from compeg_tpu_torch/csrc with nvcc, checks
-them against their plain PyTorch versions and against the golden decoder's
-answers on small streams of every supported sampling and on the 4K benchmark
-frame, drives each Decoder path with the launch counters zeroed (the default
-decode, the exact decode, decode_ycbcr, the fancy decode, the planes
-epilogue and decode_scaled) and checks that each went through its own
-kernel, checks that garbage entropy bits terminate in every kernel, and
-times the kernels against their plain versions. Any failure exits non-zero.
-The last three lines are the kernels JSON, the card's nvidia-smi name and
-power limit, and the result JSON. Needs one CUDA device.
+Builds the port's CUDA kernels from compeg_tpu_torch/csrc with nvcc and its
+native host library from compeg_tpu_torch/native with the host C++ compiler,
+checks the kernels against their plain PyTorch versions and against the
+golden decoder's answers on small streams of every supported sampling and on
+the 4K benchmark frame, drives each Decoder path with the launch counters
+zeroed (the default decode, the exact decode, decode_ycbcr, the fancy decode,
+the planes epilogue and decode_scaled) and checks that each went through its
+own kernel, checks that garbage entropy bits terminate in every kernel, and
+times the kernels against their plain versions. Then the batch and the
+stream: small batches of frames that differ, and 64 frames of 3840x2160
+4:2:2 (the benchmark frame with its restart segments rotated, so every frame
+is another picture) through BatchDecoder on K2, K2x and K3, one launch per
+batch, and through StreamDecoder in order, against golden's stored answers
+and the single-frame decode. Then the four relayout kernels: the probe tool
+compeg_tpu_torch/tools/exp_relayout.py at the probes' shapes and on the 4K
+decode, and each kernel against its plain version. Any failure exits
+non-zero. The last three lines are the kernels JSON, the card's nvidia-smi
+name and power limit, and the result JSON. Needs one CUDA device.
 
-It imports compeg_tpu_torch (which reuses compeg_tpu's jax-free host
-modules) and no jax, and runs no golden or encoder code: golden's answers
-come from compeg_tpu_torch/testdata/smoke.npz, which
-tests/test_torch_smoke_vectors.py writes and checks on the CPU.
+It imports compeg_tpu_torch, which stands on its own host layer, and neither
+jax nor anything of the JAX package compeg_tpu (checked in sys.modules at
+the end), and runs no golden or encoder code: golden's answers come from
+compeg_tpu_torch/testdata/smoke.npz, which tests/test_torch_smoke_vectors.py
+writes and checks on the CPU.
 """
 
 from __future__ import annotations
@@ -34,8 +43,15 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "bench_assets", "bench4k.jpg")
 REPS = 20
+PLAIN_REPS = 5  # the plain twins take 50-90 ms a call at 4K
 SCALES = (1, 2, 4)
 SOURCE = "compeg_tpu_torch/csrc/decode.cu"
+RELAYOUT_SOURCE = "compeg_tpu_torch/csrc/relayout.cu"
+BATCH = 64  # frames of the 4K batch and stream
+# Peaks of one H100 SXM (NVIDIA's data sheet): device memory and float32
+# outside the tensor cores. Integer operations are held to the same rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def log(*args):
@@ -99,13 +115,16 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
         return 1
     sys.path.insert(0, ROOT)
-    from compeg_tpu_torch import testdata
+    from compeg_tpu_torch import native, profiling, testdata
+    from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder
     from compeg_tpu_torch.ops import _build
     from compeg_tpu_torch.ops import color as C
     from compeg_tpu_torch.ops import entropy as E
     from compeg_tpu_torch.ops import fused as F
     from compeg_tpu_torch.ops import idct as D
+    from compeg_tpu_torch.ops import relayout as R
     from compeg_tpu_torch.pipeline import Decoder
+    from compeg_tpu_torch.tools import exp_relayout
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain IDCT in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -129,6 +148,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"(b) built {_build.library_path()} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    require(native.available(), "the native host library did not build: a "
+            "run on the card must not time the Python packer")
+    require(os.path.dirname(native.library_path()) == _build.BUILD_DIR,
+            f"the native library is not the port's: {native.library_path()}")
+    log(f"(b) packer=native: built {native.library_path()} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     def rgb(img):
         return F.rgba_to_rgb(img).cpu().numpy()
@@ -428,24 +454,32 @@ def main() -> int:
             lambda k=k: F.fused_decode_scaled(*base, lq[k], g, k))
     plain = {
         "K2": cuda_ms(lambda: F.fused_decode_rgba_reference(*base, pf.op, g),
-                      warmup=1),
+                      reps=PLAIN_REPS, warmup=1),
         "K1": cuda_ms(lambda: E.entropy_decode_reference(
-            *base, g.ri, g.total_mcus, g.du_to_comp), warmup=1),
+            *base, g.ri, g.total_mcus, g.du_to_comp), reps=PLAIN_REPS,
+            warmup=1),
         "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact_reference(
-            *base, qz, g), warmup=1),
+            *base, qz, g), reps=PLAIN_REPS, warmup=1),
         "K3 int": cuda_ms(lambda: F.fused_decode_planes_reference(
-            *base, qz, g, exact=True), warmup=1),
+            *base, qz, g, exact=True), reps=PLAIN_REPS, warmup=1),
         "K3 float": cuda_ms(lambda: F.fused_decode_planes_reference(
-            *base, pf.op, g), warmup=1),
+            *base, pf.op, g), reps=PLAIN_REPS, warmup=1),
     }
     for k in SCALES:
         plain[f"K2s k={k}"] = cuda_ms(
             lambda k=k: F.fused_decode_scaled_reference(*base, lq[k], g, k),
-            warmup=1)
+            reps=PLAIN_REPS, warmup=1)
     for name in ms:
         log(f"(f) {name} at 4K: {ms[name]:.4f} ms, plain twin "
-            f"{plain[name]:.4f} ms (medians of {REPS} CUDA-event timings) on "
-            f"{card}")
+            f"{plain[name]:.4f} ms (medians of {REPS} and {PLAIN_REPS} "
+            f"CUDA-event timings) on {card}")
+    # Device time of one decode_prepared (upload, kernel and the gaps), and
+    # what torch.profiler sees of it.
+    trace_ms, trace_rows = profiling.trace_device_ms(
+        lambda: dec.decode_prepared(pf), frames=5)
+    log(f"(f) trace_device_ms of decode_prepared: {trace_ms:.4f} ms per "
+        f"frame (CUDA events); torch.profiler kernel rows: "
+        f"{[(round(t, 4), n, name[:40]) for t, n, name in trace_rows[:3]]}")
     prep_ms = wall_ms(lambda: dec.prepare(data4k))
     h2d_ms = wall_ms(lambda: dec.upload(pf))
     out4k = F.fused_decode_rgba(*base, pf.op, g)
@@ -466,35 +500,310 @@ def main() -> int:
     for name, v in walls.items():
         log(f"(f) {name} {v:.3f} ms wall (median of {REPS}) on {card}")
 
-    def entry(name, replaces, key, err, ms_key, **extra):
-        return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "launches": launches.get(key, 0),
+    # ---- (g) small batches of frames that differ ----------------------------
+    # Segment counts that are no multiple of the kernels' 32 segments per
+    # block, short last intervals, 4:2:0 under the fancy filter: every frame
+    # of a batch against golden's answer for that frame, one launch a batch.
+    modes_b = {
+        "K2": ({}, "fused", "rgb"),
+        "K2x": ({"exact_idct": True}, "fused_exact", "rgbi"),
+        "K3": ({"exact_idct": True, "fancy_upsampling": True}, "planes",
+               "fancy"),
+    }
+    nframes = sum(1 for k in vec if k.startswith("batch0_jpeg_"))
+    batch_err = {name: 0 for name in modes_b}
+    for c, label in enumerate(vec["batch_labels"]):
+        frames = [vec[f"batch{c}_jpeg_{f}"].tobytes() for f in range(nframes)]
+        for name, (knobs, key, answer) in modes_b.items():
+            bdec = BatchDecoder(**knobs)
+            got, counts = drive(lambda: bdec.decode(frames))
+            require(counts[key] == 1 and sum(counts.values()) == 1,
+                    f"batch {label}: {name} took {counts}, not one launch")
+            for f in range(nframes):
+                err = pixel_stats(got[f], vec[f"batch{c}_{answer}_{f}"])[0]
+                batch_err[name] = max(batch_err[name], err)
+                require(err <= (1 if name == "K2" else 0),
+                        f"batch {label}: {name} frame {f} is {err} from "
+                        "golden's answer")
+        log(f"(g) batch of {nframes}, {label}: K2 within 1 of golden, K2x == "
+            f"golden integer RGB, fancy over K3 == the JAX colour functions, "
+            f"frame by frame, one launch each")
+
+    # ---- (h) 64 frames of 4K: BatchDecoder and StreamDecoder ------------------
+    # Frame i is the benchmark frame with its restart segments rotated by i
+    # MCU rows (240 segments): golden's picture rolled up by 8 * i pixel rows.
+    t0 = time.perf_counter()
+    frames4k = [testdata.rotate_restart_segments(
+        data4k, img.scan_offset, len(img.scan_data), img.width_mcus * i)
+        for i in range(BATCH)]
+    require(len(set(frames4k)) == BATCH, "the 4K frames do not all differ")
+    log(f"(h) {BATCH} rotated 4K frames in {time.perf_counter() - t0:.2f} s")
+    samples = [int(i) for i in vec["bench4k_roll_samples"] if i < BATCH]
+    singles = {"K2": main_rgb, "K2x": exact_dec.decode(data4k),
+               "K3": fancy_dec.decode(data4k)}
+    batch_launches = {}
+    batch_wall = {}
+    for name, (knobs, key, answer) in modes_b.items():
+        bdec = BatchDecoder(**knobs)
+        t0 = time.perf_counter()
+        got, counts = drive(lambda: bdec.decode(frames4k))
+        batch_wall[name] = (time.perf_counter() - t0) * 1e3 / BATCH
+        require(counts[key] == 1 and sum(counts.values()) == 1,
+                f"4K batch: {name} took {counts}, not one launch")
+        batch_launches[key] = counts[key]
+        require(got.shape == (BATCH, 2160, 3840, 3), f"4K batch: {got.shape}")
+        for i in range(BATCH):
+            require(np.array_equal(got[i], np.roll(singles[name], -8 * i, 0)),
+                    f"4K batch: {name} frame {i} is not the single-frame "
+                    f"decode rolled by {8 * i} rows")
+        if name == "K2x":
+            for i in range(BATCH):
+                require(testdata.digest(got[i])
+                        == str(vec["bench4k_rgbi_roll_sha256"][i]),
+                        f"4K batch: K2x frame {i} is not golden's (sha256)")
+        else:
+            same = [testdata.digest(got[i])
+                    == str(vec[f"bench4k_{answer}_roll_sha256"][n])
+                    for n, i in enumerate(samples)]
+            # The float default is held to golden by tolerance (phase d);
+            # its bit-identity is reported, the fancy one required.
+            require(name == "K2" or all(same),
+                    f"4K batch: fancy frames {samples} are not the stored "
+                    f"digests: {same}")
+            log(f"(h) {name} batch frames {samples} bit-identical to golden "
+                f"rolled (sha256): {same}")
+        log(f"(h) BatchDecoder({knobs}).decode of {BATCH} 4K frames: one "
+            f"launch of {key}; every frame == the single-frame decode rolled "
+            f"by its 8 * i rows" + ("; every frame == golden's integer RGB "
+                                    "rolled (sha256)" if name == "K2x" else ""))
+        del got
+
+    sdec = StreamDecoder(depth=2)
+    list(sdec.decode_iter_rgb(frames4k[:8]))  # pinned buffers, worker threads
+    t0 = time.perf_counter()
+    streamed, counts = drive(lambda: list(sdec.decode_iter_rgb(frames4k)))
+    stream_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+    stream_launches = only(counts, "fused", "StreamDecoder.decode_iter_rgb")
+    require(stream_launches == BATCH and len(streamed) == BATCH,
+            f"stream: {stream_launches} launches, {len(streamed)} frames")
+    for i, got in enumerate(streamed):
+        require(np.array_equal(got, np.roll(main_rgb, -8 * i, 0)),
+                f"stream: frame {i} is not its own decode, in order")
+    log(f"(h) StreamDecoder(depth=2, prepare_threads="
+        f"{sdec.prepare_threads}).decode_iter_rgb: {BATCH} frames in order, "
+        f"each == the single-frame decode rolled by its 8 * i rows")
+    del streamed
+
+    # Garbage bits through a batched launch: every frame of the batch equals
+    # the single-frame K2x on the same bits (itself equal to its plain twin).
+    require(grows.shape == rowsx.shape, "the garbage frame's rows have "
+            f"another shape: {grows.shape}, {rowsx.shape}")
+    gb = torch.stack([grows, grows, grows, rowsx])
+    gout = F.fused_decode_rgba_exact(gb, gpf.nseg, gpf.tables, gpf.op, g)
+    torch.cuda.synchronize()
+    require(all(torch.equal(gout[i], gk2x) for i in range(3))
+            and torch.equal(gout[3], k2x),
+            "garbage bits: the batched K2x differs from the single-frame one")
+    log("(h) garbage bits through a batched K2x launch: frames == the "
+        "single-frame K2x, the clean frame beside them == its own")
+
+    # Times: the batched kernels per frame beside the single-frame ones, and
+    # the wall per frame of batch, stream and one-shot decodes.
+    bd_t = BatchDecoder()
+    pfs = bd_t.prepare_batch(frames4k)
+    rows_b = bd_t._staging.tensor.to("cuda")
+    batch_ms = {
+        "K2": cuda_ms(lambda: F.fused_decode_rgba(
+            rows_b, pf.nseg, pf.tables, pf.op, g), reps=5) / BATCH,
+        "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact(
+            rows_b, pf.nseg, pf.tables, qz, g), reps=5) / BATCH,
+        "K3 int": cuda_ms(lambda: F.fused_decode_planes(
+            rows_b, pf.nseg, pf.tables, qz, g, exact=True), reps=5) / BATCH,
+    }
+    up_ms = wall_ms(lambda: bd_t._staging.tensor.to("cuda",
+                                                    non_blocking=True),
+                    reps=5) / BATCH
+    del rows_b
+    for name, v in batch_ms.items():
+        log(f"(h) batched {name}, B = {BATCH}: {v:.4f} ms per frame "
+            f"(median of 5 CUDA-event timings / {BATCH}); single-frame "
+            f"{ms[name]:.4f} ms, on {card}")
+    t0 = time.perf_counter()
+    for f in frames4k:
+        dec.decode(f)
+    oneshot_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+    t0 = time.perf_counter()
+    n_stream = sum(1 for _ in sdec.decode_iter_rgb(frames4k))
+    stream2_ms = (time.perf_counter() - t0) * 1e3 / n_stream
+    t0 = time.perf_counter()
+    n_dev = 0
+    for out in sdec.decode_iter(frames4k):
+        n_dev += 1
+    torch.cuda.synchronize()
+    stream_dev_ms = (time.perf_counter() - t0) * 1e3 / n_dev
+    profiling.reset_stats()
+    t0 = time.perf_counter()
+    kept = bd_t.decode(frames4k)
+    batch2_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+    stages = {k: v.total_s * 1e3 / BATCH
+              for k, v in profiling.get_stats().items()}
+    del kept  # returning 1.6 GB to the system is outside the timing
+    t0 = time.perf_counter()
+    out_b = bd_t.decode_prepared(bd_t.prepare_batch(frames4k))
+    torch.cuda.synchronize()
+    bdev_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+    del out_b
+    log(f"(h) wall per 4K frame on {card}: BatchDecoder.decode (B = {BATCH}) "
+        f"{batch_wall['K2']:.3f} ms first, {batch2_ms:.3f} ms second "
+        f"(its stages: prepare_batch {stages['batch_prepare']:.3f}, upload "
+        f"and launch {stages['batch_launch']:.3f}, kernel wait and to_rgb "
+        f"into a new host array {stages['batch_readback']:.3f}; the pinned "
+        f"upload alone {up_ms:.3f}); prepare_batch + decode_prepared to "
+        f"the card, synchronized, {bdev_ms:.3f}; "
+        f"StreamDecoder.decode_iter_rgb {stream_ms:.3f} then {stream2_ms:.3f} "
+        f"ms ({1e3 / stream2_ms:.1f} frames/s), decode_iter without readback "
+        f"{stream_dev_ms:.3f} ms; {BATCH} one-shot Decoder().decode calls "
+        f"{oneshot_ms:.3f} ms; exact batch {batch_wall['K2x']:.3f}, fancy + "
+        f"exact batch {batch_wall['K3']:.3f}")
+
+    # ---- (i) the relayout kernels --------------------------------------------
+    # The path: the probe tool, at the probes' shapes and on the 4K decode.
+    tool, counts = drive(lambda: exp_relayout.probes("cuda", reps=REPS)
+                         + [exp_relayout.swap_on_decode("cuda", reps=REPS)])
+    for res in tool:
+        log("(i) " + exp_relayout.report(res))
+        require(res["ok"], f"relayout: {res['probe']} differs from numpy")
+    rl_keys = ("interleave", "swap_crop", "stack", "spread_merge")
+    require(all(counts[k] >= 1 for k in rl_keys)
+            and not any(v for k, v in counts.items()
+                        if k not in rl_keys + ("fused",)),
+            f"the relayout tool did not run on its own kernels: {counts}")
+    # Each kernel against its plain version, on the card, at those shapes.
+    x5 = torch.randint(0, 1 << 24, (68, 8, 8, 16, 128), dtype=torch.int32,
+                       device="cuda")
+    slab = x5.reshape(34, 64, 4096)
+    rl_err = {
+        "interleave": int((R.relayout_interleave(x5[:64], stack_rows=True)
+                           - R.relayout_interleave_reference(x5[:64], True)
+                           ).abs().max()),
+        "swap_crop": int((R.relayout_swap_crop(slab, 16, 2160, 3840)
+                          - R.relayout_swap_crop_reference(slab, 16, 2160, 3840)
+                          ).abs().max()),
+        "stack": int((R.relayout_stack(x5)
+                      - R.relayout_stack_reference(x5)).abs().max()),
+        "spread_merge": max(
+            int((R.relayout_spread_merge(x5[0, 0, 0], x5[1, 0, 0], 16)
+                 - R.relayout_spread_merge_reference(x5[0, 0, 0], x5[1, 0, 0],
+                                                     16)).abs().max()),
+            int((R.relayout_copy(x5) - x5).abs().max())),
+    }
+    require(not any(rl_err.values()),
+            f"a relayout kernel differs from its plain version: {rl_err}")
+    log("(i) relayout_interleave, relayout_swap_crop, relayout_stack, "
+        "relayout_spread_merge (and the copy) == their plain versions at "
+        "the probes' shapes (exact)")
+    del x5, slab
+
+    # ---- the kernels line ------------------------------------------------------
+    # bound_ms: the larger of bytes (inputs read once, outputs written once)
+    # over the memory rate and operations over the float32 rate. Operations
+    # are the IDCT's and the colour conversion's on this frame's data (the
+    # float IDCT skips zero coefficients, so it counts the nonzero ones);
+    # the entropy phase's bit operations are not counted, which keeps the
+    # bound a lower one.
+    nnz = int(np.count_nonzero(k1))
+    n_du = pf.nseg * g.ri * len(g.du_to_comp)
+    in_bytes = pf.nseg * pf.rows.shape[1] * 4 + pf.tables.packed.numel() * 4
+    px = g.height * g.width
+    plane_bytes = sum(h * w for h, w in F.plane_shapes(g))
+    colour_ops = 12 * px
+
+    def bound(nbytes, ops):
+        by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+    bounds = {
+        "K1": bound(in_bytes + n_du * 64 * 4, 0),
+        "K2": bound(in_bytes + pf.op.numel() * 4 + px * 4,
+                    2 * 64 * nnz + colour_ops),
+        "K2x": bound(in_bytes + qz.numel() * 4 + px * 4,
+                     768 * n_du + colour_ops),
+        "K3 int": bound(in_bytes + qz.numel() * 4 + plane_bytes, 768 * n_du),
+        "K3 float": bound(in_bytes + pf.op.numel() * 4 + plane_bytes,
+                          2 * 64 * nnz),
+    }
+    for k in SCALES:
+        zlen = {1: 1, 2: 5, 4: 25}[k]
+        bounds[f"K2s k={k}"] = bound(
+            in_bytes + lq[k].numel() * 4 + px * k * k // 64 * 4,
+            2 * k * k * min(nnz, zlen * n_du) + colour_ops * k * k // 64)
+
+    def entry(name, replaces, keys, err, ms_key, source=SOURCE, **extra):
+        """One kernel's line; its launches are summed over the paths that
+        run it (each driven with the counts zeroed)."""
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(v.get(k, 0) for v in launch_sets
+                                for k in keys),
                 "max_abs_err": err, "ms": ms[ms_key],
-                "plain_ms": plain[ms_key], **extra}
+                "plain_ms": plain[ms_key], **bounds[ms_key],
+                "library_ms": None, **extra}
+
+    launch_sets = [launches, batch_launches, {"stream": stream_launches}]
+
+    def relayout_entry(name, key, replaces, probe_name):
+        res = next(r for r in tool if r["probe"] == probe_name)
+        return {"name": name, "route": "cuda", "source": RELAYOUT_SOURCE,
+                "replaces": replaces, "launches": counts[key],
+                "max_abs_err": rl_err[key], "ms": res["ms"],
+                "plain_ms": res["library_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": "bytes", "library_ms": res["library_ms"],
+                "probe": probe_name, "bytes": res["bytes"]}
 
     log(json.dumps({
         "kernels": [
             entry("fused_decode_kernel<kIdctFloat, kOutRgba> (K2)",
-                  "compeg_tpu/ops/fused.py:419", "fused", vs_plain[0], "K2"),
+                  "compeg_tpu/ops/fused.py:419", ("fused", "stream"),
+                  max(vs_plain[0], batch_err["K2"]), "K2",
+                  batched_ms_per_frame=batch_ms["K2"]),
             entry("fused_decode_kernel<kIdctInt, kOutRgba> (K2x)",
-                  "compeg_tpu/ops/fused.py:419", "fused_exact", k2x_err,
-                  "K2x"),
+                  "compeg_tpu/ops/fused.py:419", ("fused_exact",),
+                  max(k2x_err, batch_err["K2x"]), "K2x",
+                  batched_ms_per_frame=batch_ms["K2x"]),
             entry("fused_decode_kernel<kIdct*, kOutPlanes> (K3)",
-                  "compeg_tpu/ops/fused.py:580", "planes", k3_err, "K3 int",
-                  float_ms=ms["K3 float"], float_plain_ms=plain["K3 float"]),
+                  "compeg_tpu/ops/fused.py:580", ("planes",),
+                  max(k3_err, batch_err["K3"]), "K3 int",
+                  batched_ms_per_frame=batch_ms["K3 int"],
+                  float_ms=ms["K3 float"], float_plain_ms=plain["K3 float"],
+                  float_bound_ms=bounds["K3 float"]["bound_ms"]),
             entry("fused_decode_kernel<kIdctScaled, kOutRgba> (K2s)",
-                  "compeg_tpu/ops/fused.py:419", "scaled", scaled_err,
+                  "compeg_tpu/ops/fused.py:419", ("scaled",), scaled_err,
                   "K2s k=1", ms_by_k={k: ms[f"K2s k={k}"] for k in SCALES},
-                  plain_ms_by_k={k: plain[f"K2s k={k}"] for k in SCALES}),
+                  plain_ms_by_k={k: plain[f"K2s k={k}"] for k in SCALES},
+                  bound_ms_by_k={k: bounds[f"K2s k={k}"]["bound_ms"]
+                                 for k in SCALES}),
+            relayout_entry("relayout_interleave_kernel (P1)", "interleave",
+                           "tools/exp_interleave.py:135",
+                           "P1 interleave + row stack"),
+            relayout_entry("relayout_swap_crop_kernel (P2)", "swap_crop",
+                           "tools/exp_swap_pallas.py:51", "P2 swap + crop"),
+            relayout_entry("relayout_stack_kernel (P3)", "stack",
+                           "tools/exp_assembly2.py:51", "P3 sublane stack"),
+            relayout_entry("relayout_spread_merge_kernel (P4)",
+                           "spread_merge", "tools/exp_mosaic_bisect.py:23",
+                           "P1 copy floor"),
         ],
-        # Ported, but on no Decoder path.
+        # Ported, but on no Decoder path (the staged tier is not ported).
         "off_path_kernels": [
             entry("entropy_kernel (K1)", "compeg_tpu/ops/entropy.py:440",
-                  "entropy", k1_err, "K1"),
+                  ("entropy",), k1_err, "K1"),
         ],
     }))
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "compeg_tpu")]
     require(not leaked, f"imported {leaked[:5]}")
+    log("(a) sys.modules holds neither jax nor compeg_tpu; packer=native")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@
 //
 // fused_decode_kernel<IDCT, OUT> replaces the Pallas kernels built from
 // _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA assembly after
-// them. Phase 1, the entropy decode, is the same in every mode; phase 2
+// them. One launch decodes a batch of same-geometry frames (the JAX package
+// concatenates their blocks along the grid, compeg_tpu/batch.py:71); here
+// the frame is the grid's second dimension. Phase 1, the entropy decode, is the same in every mode; phase 2
 // (IDCT) and phase 3 (output) are chosen by the template arguments:
 //
 //   K2  <kIdctFloat,  kOutRgba>    fused_decode_blocks (fused.py:419), default
@@ -257,7 +259,7 @@ template <int IDCT, int OUT>
 __global__ void __launch_bounds__(K2_THREADS)
 fused_decode_kernel(const uint32_t* __restrict__ rows,
                     const int* __restrict__ tables, const void* __restrict__ op,
-                    const Outputs out, const DecodeParams p) {
+                    const Outputs outs, const DecodeParams p) {
   extern __shared__ int smem[];
   int* tab = smem;
   int* coef = smem + MAX_TABLE_INTS;  // [K2_SEGS][dus][64], pixels after IDCT
@@ -271,6 +273,22 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   }
 
   const int tid = threadIdx.x;
+  // A batch stacks its frames along blockIdx.y: segments, MCUs and output
+  // coordinates below are the frame's own, and only the row and output
+  // pointers move with the frame, so no block straddles two frames.
+  const size_t frame = blockIdx.y;
+  rows += frame * p.frame_rows * p.words;
+  Outputs out = outs;
+  if (OUT == kOutPlanes) {
+    const size_t height_mcus = p.total_mcus / p.width_mcus;
+    for (int c = 0; c < p.ncomp; ++c)
+      out.ptr[c] = static_cast<uint8_t*>(out.ptr[c]) +
+                   frame * (height_mcus * 8 * p.comp_v[c]) *
+                       ((size_t)p.width_mcus * 8 * p.comp_h[c]);
+  } else {
+    out.ptr[0] = static_cast<uint32_t*>(out.ptr[0]) +
+                 frame * p.height * (size_t)p.width;
+  }
   const int seg0 = blockIdx.x * K2_SEGS;
   const int per_mcu = p.dus * 64;
   // Segment counts only shrink at the frame's end, so the block's first
@@ -318,14 +336,14 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
 template <int IDCT, int OUT>
 int launch_fused(const void* rows, const void* tables, const void* op,
                  Outputs out, const DecodeParams* p, void* stream) {
-  if (p->nseg > 0) {
+  if (p->nseg > 0 && p->frames > 0) {
     auto kernel = fused_decode_kernel<IDCT, OUT>;
     const size_t smem = sizeof(int) * (MAX_TABLE_INTS + (size_t)K2_SEGS * p->dus * 64);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (p->nseg + K2_SEGS - 1) / K2_SEGS;
-    kernel<<<blocks, K2_THREADS, smem, (cudaStream_t)stream>>>(
+    const dim3 grid((p->nseg + K2_SEGS - 1) / K2_SEGS, p->frames);
+    kernel<<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)rows, (const int*)tables, op, out, *p);
   }
   return (int)cudaGetLastError();

@@ -30,7 +30,7 @@
 
 // Mirror of compeg_tpu_torch.ops._build.DecodeParams (all int32).
 struct DecodeParams {
-  int nseg;        // restart segments (rows) to decode
+  int nseg;        // restart segments (rows) to decode, per frame
   int words;       // u32 words per row (W >= 1)
   int ri;          // MCUs per restart interval
   int total_mcus;  // MCUs in the frame; the last segment may be short
@@ -47,6 +47,8 @@ struct DecodeParams {
   int zrl17;       // ZRL advances 17 positions (compat), not 16
   int blk;         // output pixels per DU side: 8, or k of the scaled decode
   int zlen;        // zigzag positions the scaled IDCT reads (its nonzero prefix)
+  int frames;      // frames in the launch (fused kernels; the grid's y)
+  int frame_rows;  // rows between two frames' first rows (>= nseg)
 };
 
 // One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:

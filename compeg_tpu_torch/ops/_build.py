@@ -2,8 +2,9 @@
 Pallas compilation).
 
 ``library()`` compiles every ``compeg_tpu_torch/csrc/*.cu`` with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
-and loads it with ``ctypes``. The library's file name carries a hash of the
+``sm_90a`` (one ``nvcc`` per source, all started together) and links them
+into one shared library with a plain C interface, at first use, and loads it
+with ``ctypes``. The library's file name carries a hash of the
 sources and flags, so a stale build is never loaded; it lives in
 ``build/compeg_tpu_torch/`` at the checkout root (gitignored).
 
@@ -34,15 +35,17 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "compeg_tpu_torch")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-# One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s.
+# One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s, then the four
+# relayout kernels. A batch of B frames is one launch and adds one.
 LAUNCHES = {"entropy": 0, "fused": 0, "fused_exact": 0, "planes": 0,
-            "scaled": 0}
+            "scaled": 0, "interleave": 0, "swap_crop": 0, "stack": 0,
+            "spread_merge": 0}
 
 # C entry points and their number of tensor arguments (data pointers
-# before the params struct and the stream; csrc/decode.cu).
+# before the params struct and the stream; csrc/decode.cu, csrc/relayout.cu).
 ENTRY_POINTS = {
     "compeg_entropy_decode": 3,
     "compeg_fused_decode": 4,
@@ -50,6 +53,10 @@ ENTRY_POINTS = {
     "compeg_fused_decode_planes": 6,
     "compeg_fused_decode_planes_exact": 6,
     "compeg_fused_decode_scaled": 4,
+    "compeg_relayout_interleave": 2,
+    "compeg_relayout_swap_crop": 2,
+    "compeg_relayout_stack": 2,
+    "compeg_relayout_spread_merge": 3,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -77,14 +84,25 @@ class DecodeParams(ctypes.Structure):
         ("zrl17", ctypes.c_int32),
         ("blk", ctypes.c_int32),
         ("zlen", ctypes.c_int32),
+        ("frames", ctypes.c_int32),
+        ("frame_rows", ctypes.c_int32),
     ]
+
+
+class RelayoutParams(ctypes.Structure):
+    """Mirror of ``RelayoutParams`` in csrc/relayout.cu (all int64)."""
+
+    _fields_ = [(name, ctypes.c_int64) for name in (
+        "n", "x", "l", "in_stride", "tiles", "h", "w", "sr", "g")]
 
 
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
-                blk=8, zlen=64) -> DecodeParams:
+                blk=8, zlen=64, frames=1, frame_rows=0) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
-    kernels only, ``blk`` and ``zlen`` by the scaled one."""
+    kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
+    ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
+    and ``frame_rows``, the rows between two frames' first rows."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -94,7 +112,8 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
         nseg=nseg, words=words, ri=ri, total_mcus=total_mcus,
         dus=len(du_to_comp), ncomp=len(samplings), width=width,
         height=height, width_mcus=width_mcus, rgb=int(rgb),
-        zrl17=int(zrl17), blk=blk, zlen=zlen,
+        zrl17=int(zrl17), blk=blk, zlen=zlen, frames=frames,
+        frame_rows=frame_rows,
     )
     slot = 0
     for i, c in enumerate(du_to_comp):
@@ -135,6 +154,41 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcompeg_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _compile(so: str) -> None:
+    """One ``nvcc -c`` per source, all running at once, then the link."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    stem = f"{so}.{os.getpid()}"
+    objs = [f"{stem}.{os.path.basename(src)}.o" for src in cu]
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), src)
+             for src, obj in zip(cu, objs)]
+    try:
+        failed = []
+        for proc, src in procs:
+            log_text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {src}:\n"
+                              f"{log_text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{stem}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use. Raises if the build fails."""
     global _lib
@@ -143,17 +197,7 @@ def library() -> ctypes.CDLL:
             return _lib
         so = library_path()
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cu, _ = _sources()
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stdout}{res.stderr}"
-                )
-            os.replace(tmp, so)
+            _compile(so)
         lib = ctypes.CDLL(so)
         for name, npointers in ENTRY_POINTS.items():
             fn = getattr(lib, name)
@@ -166,7 +210,7 @@ def library() -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, *tensors, params: DecodeParams) -> None:
+def launch(name: str, *tensors, params: ctypes.Structure) -> None:
     """Launch C entry point ``name`` on the current stream of the tensors'
     device (a ``None`` tensor passes a null pointer); raises with the CUDA
     error string if the launch failed."""

@@ -72,8 +72,8 @@ def _padded(values) -> Tuple[int, ...]:
 
 
 def tables_from_image(img, device="cpu", zrl17: bool = False) -> EntropyTables:
-    """Tables of an analyzed frame (:class:`compeg_tpu.metadata.ImageData`),
-    built from its :class:`~compeg_tpu.huffman.CanonicalTable` objects."""
+    """Tables of an analyzed frame (:class:`compeg_tpu_torch.metadata.ImageData`),
+    built from its :class:`~compeg_tpu_torch.huffman.CanonicalTable` objects."""
     rows = []
     for c in range(len(img.components)):
         rows.append([

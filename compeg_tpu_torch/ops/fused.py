@@ -19,6 +19,12 @@ raster (or the planes) themselves. Pixels are packed
 ``r | g << 8 | b << 16 | 0xFF << 24`` into int32, the same bits as the JAX
 package's u32 RGBA. CUDA tensors launch the kernel; CPU tensors take the
 plain twin.
+
+A batch: K2, K2x and K3 also take the rows of B same-geometry frames as one
+``[B, R, W]`` tensor (``R >= nseg`` rows per frame) and decode them in ONE
+launch, the frame being the grid's second dimension; the output gains a
+leading ``B``. ``nseg`` and ``geom`` stay one frame's. (The JAX package
+concatenates the frames' blocks along its grid, compeg_tpu/batch.py:71-114.)
 """
 
 from __future__ import annotations
@@ -44,11 +50,20 @@ def _check_op(op: torch.Tensor, shape, dtype, device, name: str) -> None:
         )
 
 
+def _frames(rows: torch.Tensor) -> Optional[int]:
+    """B of a ``[B, R, W]`` batch, None for one frame's ``[R, W]`` rows."""
+    return rows.shape[0] if rows.dim() == 3 else None
+
+
 def _check_args(rows, nseg, tables, op, geom, npx: Optional[int]) -> bool:
     """Checks the inputs; True when they lie on the CPU (the plain twin's
     case). ``npx`` is the float operator's pixel count, None for the integer
     quantizers."""
-    _check(rows, nseg, tables)
+    if rows.dim() == 3 and rows.shape[0] < 1:
+        raise ValueError("a batch holds at least one frame")
+    _check(rows[0] if rows.dim() == 3 else rows, nseg, tables)
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
     dus = len(geom.du_to_comp)
     if npx is None:
         _check_op(op, (dus, 64), torch.int32, rows.device, "qz")
@@ -61,16 +76,33 @@ def _check_args(rows, nseg, tables, op, geom, npx: Optional[int]) -> bool:
 
 def _params(rows, nseg, tables, geom, blk=8):
     return _build.make_params(
-        nseg, rows.shape[1], geom.ri, geom.total_mcus, geom.du_to_comp,
+        nseg, rows.shape[-1], geom.ri, geom.total_mcus, geom.du_to_comp,
         samplings=geom.samplings, width=geom.width, height=geom.height,
         width_mcus=geom.width_mcus, rgb=geom.rgb, zrl17=tables.zrl17,
-        blk=blk, zlen=SCALED_ZLEN.get(blk, 64),
+        blk=blk, zlen=SCALED_ZLEN.get(blk, 64), frames=_frames(rows) or 1,
+        frame_rows=rows.shape[-2],
     )
 
 
+def _batched(shape, rows):
+    """``shape`` with the batch's leading B, when ``rows`` is a batch."""
+    b = _frames(rows)
+    return tuple(shape) if b is None else (b, *shape)
+
+
+def _per_frame(fn, rows):
+    """``fn(frame rows)`` for one frame, or stacked over a batch's frames."""
+    if _frames(rows) is None:
+        return fn(rows)
+    outs = [fn(r) for r in rows]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(p) for p in zip(*outs))
+    return torch.stack(outs)
+
+
 def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8):
-    out = torch.empty((geom.height, geom.width), dtype=torch.int32,
-                      device=rows.device)
+    out = torch.empty(_batched((geom.height, geom.width), rows),
+                      dtype=torch.int32, device=rows.device)
     _build.launch(entry, rows, tables.packed, op, out,
                   params=_params(rows, nseg, tables, geom, blk))
     _build.LAUNCHES[key] += 1
@@ -79,13 +111,15 @@ def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8):
 
 def fused_decode_rgba(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                       lq_t: torch.Tensor, geom) -> torch.Tensor:
-    """Decode a frame to packed RGBA ``[H, W]`` int32 (kernel K2).
+    """Decode a frame to packed RGBA ``[H, W]`` int32 (kernel K2), or a
+    ``[B, R, W]`` batch to ``[B, H, W]`` in one launch.
 
     ``rows`` are the packed segment words ``[>= nseg, W]`` int32, ``lq_t``
     the operators of :func:`~compeg_tpu_torch.ops.idct.idct_operators`, and
     ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`."""
     if _check_args(rows, nseg, tables, lq_t, geom, 64):
-        return fused_decode_rgba_reference(rows, nseg, tables, lq_t, geom)
+        return _per_frame(lambda r: fused_decode_rgba_reference(
+            r, nseg, tables, lq_t, geom), rows)
     return _launch_rgba("compeg_fused_decode", "fused", rows, nseg, tables,
                         lq_t, geom)
 
@@ -97,7 +131,8 @@ def fused_decode_rgba_exact(rows: torch.Tensor, nseg: int,
     ``qz`` are the quantizers of
     :func:`~compeg_tpu_torch.ops.int_idct.int_quantizers`."""
     if _check_args(rows, nseg, tables, qz, geom, None):
-        return fused_decode_rgba_exact_reference(rows, nseg, tables, qz, geom)
+        return _per_frame(lambda r: fused_decode_rgba_exact_reference(
+            r, nseg, tables, qz, geom), rows)
     return _launch_rgba("compeg_fused_decode_exact", "fused_exact", rows,
                         nseg, tables, qz, geom)
 
@@ -116,6 +151,8 @@ def fused_decode_scaled(rows: torch.Tensor, nseg: int, tables: EntropyTables,
     operators of :func:`~compeg_tpu_torch.ops.idct.scaled_operators`."""
     if k not in SCALED_ZLEN:
         raise ValueError(f"scaled decode takes k in 1, 2, 4 (got {k})")
+    if rows.dim() != 2:
+        raise ValueError("the scaled decode takes one frame's [R, W] rows")
     if _check_args(rows, nseg, tables, lq_k, geom, k * k):
         return fused_decode_scaled_reference(rows, nseg, tables, lq_k, geom, k)
     return _launch_rgba("compeg_fused_decode_scaled", "scaled", rows, nseg,
@@ -133,11 +170,14 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                         op: torch.Tensor, geom,
                         exact: bool = False) -> Tuple[torch.Tensor, ...]:
     """Decode a frame to one u8 plane per component (kernel K3), see
-    :func:`plane_shapes`. ``op`` is ``lq_t`` for the float IDCT, or the
-    integer quantizers when ``exact``."""
+    :func:`plane_shapes`; a ``[B, R, W]`` batch gives ``[B, Hc, Wc]`` planes
+    in one launch. ``op`` is ``lq_t`` for the float IDCT, or the integer
+    quantizers when ``exact``."""
     if _check_args(rows, nseg, tables, op, geom, None if exact else 64):
-        return fused_decode_planes_reference(rows, nseg, tables, op, geom, exact)
-    planes = [torch.empty(s, dtype=torch.uint8, device=rows.device)
+        return _per_frame(lambda r: fused_decode_planes_reference(
+            r, nseg, tables, op, geom, exact), rows)
+    planes = [torch.empty(_batched(s, rows), dtype=torch.uint8,
+                          device=rows.device)
               for s in plane_shapes(geom)]
     entry = ("compeg_fused_decode_planes_exact" if exact
              else "compeg_fused_decode_planes")
@@ -239,7 +279,7 @@ def fused_decode_planes_reference(rows: torch.Tensor, nseg: int,
 
 
 def rgba_to_rgb(img: torch.Tensor) -> torch.Tensor:
-    """Packed RGBA ``[H, W]`` int32 -> contiguous ``[H, W, 3]`` uint8 on the
-    same device (the int32's bytes are little-endian r, g, b, a)."""
+    """Packed RGBA ``[..., H, W]`` int32 -> contiguous ``[..., H, W, 3]``
+    uint8 on the same device (the int32's bytes are little-endian r, g, b, a)."""
     rgba = img.contiguous().view(torch.uint8).reshape(*img.shape, 4)
     return rgba[..., :3].contiguous()

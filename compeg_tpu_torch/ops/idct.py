@@ -1,7 +1,7 @@
 """Dequantization + 8x8 IDCT: the per-slot operators and the plain version.
 
 Counterpart of :mod:`compeg_tpu.ops.idct`. The operator is the JAX
-package's own f32 ``Lq`` (``compeg_tpu.ops.luts.idct_dequant_matrices``):
+package's f32 ``Lq`` (``ops/luts.idct_dequant_matrices``, the port's copy):
 the zigzag de-ordering, the quantizer and the ``retained_coefficients``
 truncation folded into one ``[64, 64]`` matrix per DU slot, so that
 
@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from compeg_tpu.ops.luts import (idct_dequant_matrices,
-                                 scaled_idct_dequant_matrices)
+from .luts import idct_dequant_matrices, scaled_idct_dequant_matrices
 
 # Zigzag positions the k-point operator can read: the prefix that holds the
 # k x k lowest frequencies (every later column is zero; a test checks it).

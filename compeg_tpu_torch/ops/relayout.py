@@ -1,0 +1,224 @@
+"""Relayouts of u32 rasters: the four kernels of csrc/relayout.cu, each with
+its plain PyTorch version beside it.
+
+Counterpart of the JAX package's relayout probes under ``tools/``
+(``exp_interleave.py``, ``exp_swap_pallas.py``, ``exp_assembly2.py``,
+``exp_mosaic_bisect.py``). Those asked which formulation of a permutation
+the TPU's compiler could lower and how fast; here each permutation they
+compute is one hand-written kernel:
+
+* :func:`relayout_interleave`: the minor transpose ``[..., X, L] ->
+  [..., L, X]`` flattened to ``[..., L * X]``, optionally with the rows
+  stacked as the raster form stacks them;
+* :func:`relayout_swap_crop`: the assembly's tile swap and the crop to
+  ``[H, W]`` in one pass;
+* :func:`relayout_stack`: ``[g, s, r, x, l] -> [g, x, s * R + r, l]``;
+* :func:`relayout_spread_merge`: ``out[s, l * X + k] = (a if k == 0 else
+  b)[s, l]``; :func:`relayout_spread` (``b = a``) and :func:`relayout_copy`
+  (``X = 1``, the store-bandwidth floor) are its special cases.
+
+Tensors are int32 (the same bits as the probes' u32). A CUDA tensor launches
+the kernel; a CPU tensor takes the plain version (a ``permute`` /
+``reshape`` / slice), which on the card also serves as the library call
+whose time stands beside the kernel's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def _check(t: torch.Tensor, ndim, name: str) -> bool:
+    """Checks a kernel input; True when it lies on the CPU."""
+    dims = ndim if isinstance(ndim, tuple) else (ndim,)
+    if t.dtype != torch.int32 or t.dim() not in dims:
+        raise ValueError(f"{name} must be int32 with {ndim} dimensions, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def _contiguous(t: torch.Tensor, name: str) -> None:
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(entry: str, key: str, *tensors, **fields) -> None:
+    _build.launch(entry, *tensors, params=_build.RelayoutParams(**fields))
+    _build.LAUNCHES[key] += 1
+
+
+# -- P1: (x, lane) -> raster interleave --------------------------------------
+
+
+def _interleave_shape(shape, stack_rows: bool):
+    *lead, x, l = shape
+    if stack_rows:
+        if len(lead) < 2:
+            raise ValueError("stack_rows needs [..., S, R, X, L]")
+        lead = [*lead[:-2], lead[-2] * lead[-1]]
+    return (*lead, l * x)
+
+
+def relayout_interleave_reference(v: torch.Tensor,
+                                  stack_rows: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`relayout_interleave`."""
+    out = v.transpose(-1, -2).contiguous()
+    return out.reshape(_interleave_shape(v.shape, stack_rows))
+
+
+def relayout_interleave(v: torch.Tensor,
+                        stack_rows: bool = False) -> torch.Tensor:
+    """``out[..., l * X + x] = v[..., x, l]`` for ``v [..., X, L]``
+    (``ref_interleave``, tools/exp_interleave.py:158). With ``stack_rows``
+    the two dimensions before ``X`` merge, ``[G, S, R, X, L] ->
+    [G, S * R, L * X]`` (``stack_rows_kernel`` :104); that is the same
+    memory, so it costs nothing more.
+
+    ``v`` may be a strided batch of contiguous ``[X, L]`` matrices, such as
+    ``t[:, 0]`` of a contiguous ``[S, R, X, L]`` (the single-block
+    constructs of tools/exp_mosaic_bisect.py:80-100)."""
+    if _check(v, (2, 3, 4, 5), "v"):
+        return relayout_interleave_reference(v, stack_rows)
+    x, l = v.shape[-2:]
+    batch = v.reshape(-1, x, l) if v.is_contiguous() else v
+    if batch.dim() != 3 or batch.stride(2) != 1 or batch.stride(1) != l:
+        raise ValueError("v must be contiguous, or a [N, X, L] batch of "
+                         "contiguous matrices")
+    n = batch.shape[0]
+    out = torch.empty(_interleave_shape(v.shape, stack_rows),
+                      dtype=torch.int32, device=v.device)
+    _launch("compeg_relayout_interleave", "interleave", batch, out, n=n, x=x,
+            l=l, in_stride=batch.stride(0) if n > 1 else x * l)
+    return out
+
+
+# -- P2: the assembly's minor swap and crop ----------------------------------
+
+LANES = 128  # words per lane row of the JAX package's slab
+
+
+def relayout_swap_crop_reference(slab: torch.Tensor, x: int, height: int,
+                                 width: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`relayout_swap_crop`."""
+    n_tr, rt, cols = slab.shape
+    n_tc = _tile_columns(slab, x)
+    z = slab.reshape(n_tr * rt, n_tc, x, LANES).transpose(2, 3)
+    return z.reshape(n_tr * rt, cols)[:height, :width].contiguous()
+
+
+def _tile_columns(slab: torch.Tensor, x: int) -> int:
+    """n_tc of a slab whose rows hold whole ``[X, 128]`` tiles."""
+    if x < 1 or slab.shape[2] % (x * LANES):
+        raise ValueError(f"slab rows of {slab.shape[2]} words are no whole "
+                         f"number of [{x}, {LANES}] tiles")
+    return slab.shape[2] // (x * LANES)
+
+
+def relayout_swap_crop(slab: torch.Tensor, x: int, height: int,
+                       width: int) -> torch.Tensor:
+    """The tiled slab ``[n_tr, RT, n_tc * X * 128]`` to the raster ``[H,
+    W]``: ``out[r * RT + t, c * 128 * X + l * X + x] = slab[r, t, c * X * 128
+    + x * 128 + l]``, cropped (``make_swap``, tools/exp_swap_pallas.py:35).
+    The edge tiles are partial: slab rows past ``H`` and columns past ``W``
+    are dropped in the same pass."""
+    cpu = _check(slab, 3, "slab")
+    n_tc = _tile_columns(slab, x)
+    n_tr, rt, cols = slab.shape
+    if not (0 < height <= n_tr * rt and 0 < width <= cols):
+        raise ValueError(f"crop [{height}, {width}] outside the slab's "
+                         f"[{n_tr * rt}, {cols}]")
+    if cpu:
+        return relayout_swap_crop_reference(slab, x, height, width)
+    _contiguous(slab, "slab")
+    out = torch.empty((height, width), dtype=torch.int32, device=slab.device)
+    _launch("compeg_relayout_swap_crop", "swap_crop", slab, out,
+            n=n_tr * rt * n_tc, x=x, l=LANES, tiles=n_tc, h=height, w=width)
+    return out
+
+
+def swap_crop_inverse(img: torch.Tensor, x: int, rt: int) -> torch.Tensor:
+    """The slab that :func:`relayout_swap_crop` turns into ``img`` (plain
+    PyTorch; the rows and columns the crop drops are zero): what the tools
+    build P2's input from, the port's decode having no slab of its own."""
+    h, w = img.shape
+    n_tr = -(-h // rt)
+    n_tc = -(-w // (x * LANES))
+    full = torch.zeros((n_tr * rt, n_tc * LANES * x), dtype=img.dtype,
+                       device=img.device)
+    full[:h, :w] = img
+    z = full.reshape(n_tr * rt, n_tc, LANES, x).transpose(2, 3)
+    return z.reshape(n_tr, rt, n_tc * x * LANES).contiguous()
+
+
+# -- P3: sublane-stack slab store --------------------------------------------
+
+
+def relayout_stack_reference(v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`relayout_stack`."""
+    g, s, r, x, l = v.shape
+    return v.permute(0, 3, 1, 2, 4).reshape(g, x, s * r, l).contiguous()
+
+
+def relayout_stack(v: torch.Tensor) -> torch.Tensor:
+    """``out[g, x, s * R + r, l] = v[g, s, r, x, l]``
+    (``stack_epilogue_kernel``, tools/exp_assembly2.py:38, :110)."""
+    if _check(v, 5, "v"):
+        return relayout_stack_reference(v)
+    _contiguous(v, "v")
+    g, s, r, x, l = v.shape
+    out = torch.empty((g, x, s * r, l), dtype=torch.int32, device=v.device)
+    _launch("compeg_relayout_stack", "stack", v, out, g=g, sr=s * r, x=x, l=l)
+    return out
+
+
+# -- P4: lane spread, where-merge, copy --------------------------------------
+
+
+def relayout_spread_merge_reference(a: torch.Tensor, b: torch.Tensor,
+                                    x: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`relayout_spread_merge`."""
+    out = b.repeat_interleave(x, dim=1)
+    out[:, ::x] = a
+    return out
+
+
+def relayout_spread_merge(a: torch.Tensor, b: torch.Tensor,
+                          x: int) -> torch.Tensor:
+    """``out[s, l * X + k] = (a if k == 0 else b)[s, l]`` for two ``[S, L]``
+    tensors of one shape and row stride (rows may be strided, elements not):
+    the iota + where merge of two lane spreads, tools/exp_mosaic_bisect.py
+    :60-70."""
+    cpu = _check(a, 2, "a")
+    _check(b, 2, "b")
+    if a.shape != b.shape or a.device != b.device or x < 1:
+        raise ValueError("a and b must share shape and device, and X >= 1")
+    if cpu:
+        return relayout_spread_merge_reference(a, b, x)
+    s, l = a.shape
+    if (a.stride(1), b.stride(1)) != (1, 1) or a.stride(0) != b.stride(0):
+        raise ValueError("a and b need unit element stride and one row "
+                         "stride")
+    out = torch.empty((s, l * x), dtype=torch.int32, device=a.device)
+    _launch("compeg_relayout_spread_merge", "spread_merge", a, b, out, n=s,
+            l=l, x=x, in_stride=a.stride(0))
+    return out
+
+
+def relayout_spread(a: torch.Tensor, x: int) -> torch.Tensor:
+    """``out[s, l * X + k] = a[s, l]``: the X-fold lane spread
+    (tools/exp_mosaic_bisect.py:41-57)."""
+    return relayout_spread_merge(a, a, x)
+
+
+def relayout_copy(a: torch.Tensor) -> torch.Tensor:
+    """A copy of ``a`` (any shape with a contiguous last dimension and at
+    most one strided row dimension): the store-bandwidth floor of the
+    probes (``copy_kernel``, tools/exp_interleave.py:56)."""
+    if a.dim() != 2:
+        _contiguous(a, "a")
+    rows = a if a.dim() == 2 else a.reshape(-1, a.shape[-1])
+    return relayout_spread_merge(rows, rows, 1).reshape(a.shape)

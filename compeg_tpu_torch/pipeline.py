@@ -14,9 +14,10 @@ A frame decode is host preparation plus ONE fused kernel launch:
       -> packed RGBA [H, W] int32 on the device (u8 planes for decode_ycbcr)
 
 ``zrl_compat`` changes only the entropy phase, in every kernel. The staged
-tier (``fused=False``) is not ported yet. The host layer is the JAX
-package's own (``compeg_tpu`` parser, metadata, scan, native packer);
-nothing here imports jax.
+tier (``fused=False``) is not ported yet. The host layer (parser, metadata,
+scan, the native packer) is the port's own copy of the JAX package's;
+nothing here imports jax or ``compeg_tpu``. Batches and streams of frames
+are :mod:`compeg_tpu_torch.batch`.
 """
 
 from __future__ import annotations
@@ -24,22 +25,21 @@ from __future__ import annotations
 import dataclasses
 import logging
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from compeg_tpu import native
-from compeg_tpu import scan as S
-from compeg_tpu.errors import CompegError
-from compeg_tpu.metadata import ImageData, analyze
-from compeg_tpu.profiling import stage_timer
-
+from . import native
+from . import scan as S
+from .errors import CompegError
+from .metadata import ImageData, analyze
 from .ops import color as C
 from .ops import entropy as E
 from .ops import fused as F
 from .ops import idct as D
 from .ops import int_idct as I
+from .profiling import stage_timer
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -82,7 +82,7 @@ class PreparedFrame:
     """Host-side preparation of one frame: the packed segment rows and the
     stream constants (already on the decoder's device)."""
 
-    rows: np.ndarray  # [>= nseg, W] uint32, MSB-first words
+    rows: Optional[np.ndarray]  # [>= nseg, W] uint32, MSB-first words
     nseg: int
     tables: E.EntropyTables
     # The IDCT operand of the decoder's mode: the [DUS, 64, 64] f32
@@ -192,42 +192,72 @@ class Decoder:
         self._hdr_cache = (img.source[: img.scan_offset], img, consts)
         return img, consts
 
-    def _pack(self, img: ImageData) -> Tuple[np.ndarray, str]:
-        """Destuff + split + pack the scan into ``[>= nseg, W]`` u32 rows."""
+    @staticmethod
+    def _scan_span(img: ImageData) -> Tuple[bytes, int, int]:
+        """(buffer, offset, length) of the entropy-coded span, in place in
+        the source file where the frame has one."""
+        if img.source is not None:
+            return img.source, img.scan_offset, len(img.scan_data)
+        return bytes(img.scan_data), 0, len(img.scan_data)
+
+    def measure_width(self, img: ImageData) -> int:
+        """Words per row that hold the frame's longest destuffed segment;
+        raises when the scan's interval count is not the header's."""
         expected = img.total_restart_intervals
-        if not native.available():
-            intervals = S.split_intervals(bytes(img.scan_data), expected)
-            w = max(1, S._words_per_segment(max(len(s) for s in intervals)))
-            blk = S.to_device_layout(intervals, w)
-            rows = blk.words.transpose(0, 2, 3, 1).reshape(-1, blk.words_per_segment)
-            return np.ascontiguousarray(rows), "python"
-        src, off, ln = (
-            (img.source, img.scan_offset, len(img.scan_data))
-            if img.source is not None
-            else (bytes(img.scan_data), 0, len(img.scan_data))
-        )
-        g = -(-expected // S.SEGMENTS_PER_BLOCK)
-        nthr = self.pack_threads or 0
+        if native.available():
+            src, off, ln = self._scan_span(img)
+            n, mx = native.scan_info(src, offset=off, length=ln)
+            if n != expected:
+                raise CompegError(
+                    f"scan contains {n} restart intervals, expected {expected}"
+                )
+        else:
+            mx = max(len(s) for s in
+                     S.split_intervals(bytes(img.scan_data), expected))
+        return max(1, S._words_per_segment(mx))
+
+    def pack_into(self, img: ImageData, out: np.ndarray) -> str:
+        """Destuff + split + pack the scan into ``out``, ``[row_capacity(
+        nseg), W]`` uint32, at ``out``'s width; raises CompegError when a
+        segment does not fit or the interval count is off. Returns the
+        packer's name."""
+        expected = img.total_restart_intervals
+        if native.available():
+            src, off, ln = self._scan_span(img)
+            native.pack_rows(src, expected, out.shape[1],
+                             out.shape[0] // S.SEGMENTS_PER_BLOCK,
+                             offset=off, length=ln,
+                             n_threads=self.pack_threads or 0, out=out)
+            return "native"
+        intervals = S.split_intervals(bytes(img.scan_data), expected)
+        blk = S.to_device_layout(intervals, out.shape[1])
+        out[...] = blk.words.transpose(0, 2, 3, 1).reshape(out.shape)
+        return "python"
+
+    def _pack(self, img: ImageData,
+              alloc: Optional[Callable[[int, int], np.ndarray]] = None
+              ) -> Tuple[np.ndarray, str]:
+        """Destuff + split + pack the scan into ``[>= nseg, W]`` u32 rows,
+        written into ``alloc(rows, W)`` (a new array by default)."""
+        alloc = alloc or _new_rows
+        cap = row_capacity(img.total_restart_intervals)
         w = self._cached_width
         if w is not None:
+            rows = alloc(cap, w)
             try:
-                rows, _ = native.pack_rows(src, expected, w, g, offset=off,
-                                           length=ln, n_threads=nthr)
-                return rows, "native"
+                return rows, self.pack_into(img, rows)
             except CompegError:
                 pass  # a longer segment or another count: re-measure
-        n, mx = native.scan_info(src, offset=off, length=ln)
-        if n != expected:
-            raise CompegError(
-                f"scan contains {n} restart intervals, expected {expected}"
-            )
-        w = max(1, S._words_per_segment(mx))
-        self._cached_width = w
-        rows, _ = native.pack_rows(src, expected, w, g, offset=off, length=ln,
-                                   n_threads=nthr)
-        return rows, "native"
+        w = self._cached_width = self.measure_width(img)
+        rows = alloc(cap, w)
+        return rows, self.pack_into(img, rows)
 
-    def prepare(self, data) -> PreparedFrame:
+    def prepare(self, data,
+                alloc: Optional[Callable[[int, int], np.ndarray]] = None
+                ) -> PreparedFrame:
+        """Host preparation of one frame. ``alloc(rows, W)`` supplies the
+        uint32 array the rows are packed into (a pinned staging buffer, for
+        an asynchronous upload); a new array by default."""
         with stage_timer("parse"):
             if isinstance(data, ImageData):
                 img, consts = data, None
@@ -240,29 +270,42 @@ class Decoder:
             log.info("image has %d restart intervals (parallelism); device "
                      "decode is most efficient above ~10000", nseg)
             self._warned_parallelism = True
-        # Device budget: the raster output (MCU-padded bound), the u8
-        # component planes of the planes kernel (one byte per sample), and
-        # the scan words, which are at most the scan's bytes plus a word per
-        # segment.
-        est = (img.total_mcus * (img.mcu_width * img.mcu_height * 4
-                                 + img.dus_per_mcu * 64)
-               + len(img.scan_data) + 4 * nseg)
-        if est > self.max_device_bytes:
-            raise CompegError(
-                f"decode would need ~{est >> 20} MiB of device buffers "
-                f"(restart interval {img.restart_interval} MCUs over {nseg} "
-                f"segments); exceeds the {self.max_device_bytes >> 20} MiB "
-                "budget — fall back to a software decoder"
-            )
+        self.check_budget(img, 1)
         with stage_timer("preprocess"):
-            rows, packer = self._pack(img)
+            rows, packer = self._pack(img, alloc)
+        pf = self.frame_constants(img, consts)
+        pf.rows, pf.packer = rows, packer
+        return pf
+
+    def frame_constants(self, img: ImageData,
+                        consts: Optional[Dict]) -> PreparedFrame:
+        """A frame's :class:`PreparedFrame` without its rows: geometry and
+        the stream constants of its header, made on the first frame of a
+        stream and found in ``consts`` afterwards."""
         tables, geom = _stream_const(consts, "frame", lambda: (
             E.tables_from_image(img, self.device, zrl17=self.zrl_compat),
             FrameGeometry.from_image(img)))
-        op = self._operator(img, consts, 8)
-        return PreparedFrame(rows=rows, nseg=nseg, tables=tables, op=op,
-                             geom=geom, image=img, packer=packer,
-                             consts=consts)
+        return PreparedFrame(rows=None, nseg=img.total_restart_intervals,
+                             tables=tables, op=self._operator(img, consts, 8),
+                             geom=geom, image=img, packer="", consts=consts)
+
+    def check_budget(self, img: ImageData, frames: int) -> None:
+        """Device budget of ``frames`` frames decoded at once: the raster
+        output (MCU-padded bound), the u8 component planes of the planes
+        kernel (one byte per sample), and the scan words, which are at most
+        the scan's bytes plus a word per segment."""
+        nseg = img.total_restart_intervals
+        est = frames * (img.total_mcus * (img.mcu_width * img.mcu_height * 4
+                                          + img.dus_per_mcu * 64)
+                        + len(img.scan_data) + 4 * nseg)
+        if est > self.max_device_bytes:
+            raise CompegError(
+                f"decode would need ~{est >> 20} MiB of device buffers "
+                f"({frames} frame(s), restart interval "
+                f"{img.restart_interval} MCUs over {nseg} segments); exceeds "
+                f"the {self.max_device_bytes >> 20} MiB budget — fall back "
+                "to a software decoder"
+            )
 
     def _operator(self, img: ImageData, consts: Optional[Dict], scale: int):
         """The IDCT operand at ``scale`` (8: the decoder's own mode; k: the
@@ -288,19 +331,37 @@ class Decoder:
         rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
         return rows.to(self.device)
 
-    def _planes(self, pf: PreparedFrame):
-        return F.fused_decode_planes(self.upload(pf), pf.nseg, pf.tables,
-                                     pf.op, pf.geom, exact=self.exact_idct)
+    def _planes(self, pf: PreparedFrame, rows: torch.Tensor):
+        return F.fused_decode_planes(rows, pf.nseg, pf.tables, pf.op,
+                                     pf.geom, exact=self.exact_idct)
+
+    def decode_rows(self, pf: PreparedFrame,
+                    rows: torch.Tensor) -> torch.Tensor:
+        """Decode segment rows that are on the device already, on the
+        current stream: one frame's ``[>= nseg, W]`` int32 to packed RGBA
+        ``[H, W]`` int32, or a ``[B, R, W]`` batch of frames that share
+        ``pf``'s geometry and tables to ``[B, H, W]`` in one launch."""
+        g = pf.geom
+        if self.fancy or self.planes_epilogue is True:
+            planes = self._planes(pf, rows)
+
+            def finalize(p):
+                return C.finalize_planes(p, g.samplings, g.width, g.height,
+                                         fancy=self.fancy, rgb=g.rgb)
+
+            if rows.dim() == 2:
+                return finalize(planes)
+            # Frame by frame: each frame's planes are a slice of the batch's,
+            # so the vertical filter cannot reach into a neighbouring frame.
+            return torch.stack([finalize([p[i] for p in planes])
+                                for i in range(rows.shape[0])])
+        decode = (F.fused_decode_rgba_exact if self.exact_idct
+                  else F.fused_decode_rgba)
+        return decode(rows, pf.nseg, pf.tables, pf.op, g)
 
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
         """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device."""
-        g = pf.geom
-        if self.fancy or self.planes_epilogue is True:
-            return C.finalize_planes(self._planes(pf), g.samplings, g.width,
-                                     g.height, fancy=self.fancy, rgb=g.rgb)
-        decode = (F.fused_decode_rgba_exact if self.exact_idct
-                  else F.fused_decode_rgba)
-        return decode(self.upload(pf), pf.nseg, pf.tables, pf.op, g)
+        return self.decode_rows(pf, self.upload(pf))
 
     def decode(self, data) -> np.ndarray:
         """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array."""
@@ -335,7 +396,8 @@ class Decoder:
         return [
             p[: -(-g.height * v // max_v), : -(-g.width * h // max_h)]
             .cpu().numpy()
-            for p, (h, v) in zip(self._planes(pf), g.samplings)
+            for p, (h, v) in zip(self._planes(pf, self.upload(pf)),
+                                 g.samplings)
         ]
 
     def decode_scaled(self, data, scale_blocks: int) -> np.ndarray:
@@ -383,6 +445,16 @@ class DecodeOp:
 
     def __dlpack_device__(self):
         return self.result.__dlpack_device__()
+
+
+def row_capacity(nseg: int) -> int:
+    """Rows of a frame's packed buffer: the packer writes whole blocks of
+    ``SEGMENTS_PER_BLOCK`` rows, zero past ``nseg``."""
+    return -(-nseg // S.SEGMENTS_PER_BLOCK) * S.SEGMENTS_PER_BLOCK
+
+
+def _new_rows(rows: int, width: int) -> np.ndarray:
+    return np.empty((rows, width), dtype=np.uint32)
 
 
 def _stream_const(consts: Optional[Dict], key, make):

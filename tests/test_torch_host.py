@@ -1,0 +1,237 @@
+"""The port's own host layer against the JAX package's, module by module, on
+the same bytes: everything here is integer or table data and must be equal
+exactly (the IDCT operators too: both packages build them with the same
+numpy expressions)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import compeg_tpu.huffman as JH  # noqa: E402
+import compeg_tpu.metadata as JM  # noqa: E402
+import compeg_tpu.native as JN  # noqa: E402
+import compeg_tpu.scan as JS  # noqa: E402
+import compeg_tpu.tables as JT  # noqa: E402
+from compeg_tpu import encoder  # noqa: E402
+from compeg_tpu.errors import CompegError as JaxCompegError  # noqa: E402
+from compeg_tpu.ops import int_idct as JI  # noqa: E402
+from compeg_tpu.ops import luts as JL  # noqa: E402
+import compeg_tpu_torch.huffman as H  # noqa: E402
+import compeg_tpu_torch.metadata as M  # noqa: E402
+import compeg_tpu_torch.native as N  # noqa: E402
+import compeg_tpu_torch.scan as S  # noqa: E402
+import compeg_tpu_torch.tables as T  # noqa: E402
+from compeg_tpu_torch import CompegError, Decoder, ImageData  # noqa: E402
+from compeg_tpu_torch.ops import int_idct as I  # noqa: E402
+from compeg_tpu_torch.ops import luts as L  # noqa: E402
+import compeg_tpu.profiling as JP  # noqa: E402
+import compeg_tpu_torch.profiling as P  # noqa: E402
+
+STREAMS = [("422", 1, 24, 40), ("420", 3, 40, 72), ("444", None, 16, 24),
+           ("gray", 1, 17, 37), ("411", 2, 16, 64), ("440", 5, 32, 24)]
+needs_native = pytest.mark.skipif(
+    not (JN.available() and N.available()),
+    reason="needs a C++ compiler for both native libraries")
+
+
+def stream(test_image, sampling, ri, h, w):
+    return encoder.encode(test_image(h, w, "noise"), sampling=sampling,
+                          quality=88, restart_interval_mcus=ri)
+
+
+def plain(value):
+    """Dataclasses (of either package) down to comparable builtins."""
+    if dataclasses.is_dataclass(value):
+        return {f.name: plain(getattr(value, f.name))
+                for f in dataclasses.fields(value)}
+    if isinstance(value, dict):
+        return {k: plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [plain(v) for v in value]
+    if isinstance(value, np.ndarray):
+        return (str(value.dtype), value.shape, value.tobytes())
+    if isinstance(value, memoryview):
+        return bytes(value)
+    return value
+
+
+@pytest.mark.parametrize("use_native", [None, False], ids=["native", "python"])
+@pytest.mark.parametrize("sampling,ri,h,w", STREAMS)
+def test_analyze_gives_the_same_image_data(sampling, ri, h, w, use_native,
+                                           test_image):
+    data = stream(test_image, sampling, ri, h, w)
+    ours, theirs = M.analyze(data, use_native), JM.analyze(data, use_native)
+    assert isinstance(ours, ImageData) and not isinstance(theirs, ImageData)
+    assert [f.name for f in dataclasses.fields(ours)] == [
+        f.name for f in dataclasses.fields(theirs)]
+    assert plain(ours) == plain(theirs)
+    assert ours.mcu_width == theirs.mcu_width
+    assert ours.parallelism() == theirs.parallelism()
+
+
+def test_errors_are_the_ports_own(test_image):
+    assert CompegError is not JaxCompegError
+    bad = stream(test_image, "422", 1, 16, 16)[:40]
+    with pytest.raises(CompegError) as ours:
+        M.analyze(bad)
+    with pytest.raises(JaxCompegError) as theirs:
+        JM.analyze(bad)
+    assert str(ours.value) == str(theirs.value)
+    assert not isinstance(ours.value, JaxCompegError)
+    progressive = bytearray(stream(test_image, "422", 1, 16, 16))
+    progressive[progressive.find(b"\xff\xc0") + 1] = 0xC2
+    with pytest.raises(CompegError, match="baseline"):
+        M.analyze(bytes(progressive))
+
+
+def test_tables_and_huffman_are_equal():
+    for name in ("ZIGZAG", "UNZIGZAG"):
+        assert np.array_equal(getattr(T, name), getattr(JT, name)), name
+    names = [n for n in dir(JT) if n.isupper()]
+    assert names == [n for n in dir(T) if n.isupper()]
+    for name in names:
+        assert plain(getattr(T, name)) == plain(getattr(JT, name)), name
+    ours, theirs = H.default_tables(), JH.default_tables()
+    assert ours.keys() == theirs.keys()
+    for key in ours:
+        assert plain(ours[key]) == plain(theirs[key])
+        assert ours[key].encode_map() == theirs[key].encode_map()
+    counts, values = theirs[(1, 0)].counts, theirs[(1, 0)].values
+    assert plain(H.build_table(counts, values)) == plain(
+        JH.build_table(counts, values))
+
+
+@needs_native
+@pytest.mark.parametrize("sampling,ri,h,w", STREAMS)
+def test_native_scan_info_and_pack_rows_are_equal(sampling, ri, h, w,
+                                                  test_image):
+    data = stream(test_image, sampling, ri, h, w)
+    img = M.analyze(data)
+    n = img.total_restart_intervals
+    span = dict(offset=img.scan_offset, length=len(img.scan_data))
+    assert N.scan_info(data, **span) == JN.scan_info(data, **span)
+    assert N.scan_info(bytes(img.scan_data)) == (
+        n, max(len(s) for s in S.split_intervals(bytes(img.scan_data), n)))
+    w_ = S._words_per_segment(N.scan_info(data, **span)[1]) + 1
+    g = -(-n // S.SEGMENTS_PER_BLOCK)
+    ours, active = N.pack_rows(data, n, w_, g, **span)
+    theirs, jactive = JN.pack_rows(data, n, w_, g, **span)
+    assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
+    assert ours.tobytes() == theirs.tobytes()
+    assert np.array_equal(active, jactive)
+    # ... and equal to the Python packer, the port's and the JAX package's.
+    blk = S.to_device_layout(S.split_intervals(bytes(img.scan_data), n), w_)
+    jblk = JS.to_device_layout(JS.split_intervals(bytes(img.scan_data), n), w_)
+    assert blk.words.tobytes() == jblk.words.tobytes()
+    assert np.array_equal(blk.active, jblk.active)
+    assert np.array_equal(
+        blk.words.transpose(0, 2, 3, 1).reshape(-1, w_), ours)
+    # into a caller's buffer, in place
+    buf = np.full(ours.shape, 0xDEADBEEF, np.uint32)
+    got, _ = N.pack_rows(data, n, w_, g, out=buf, **span)
+    assert got is buf and np.array_equal(buf, ours)
+    with pytest.raises(ValueError):
+        N.pack_rows(data, n, w_, g, out=buf[:, :-1], **span)
+    with pytest.raises(CompegError):
+        N.pack_rows(data, n + 1, w_, g, **span)
+
+
+@needs_native
+def test_the_two_native_libraries_are_two_files():
+    assert N.library_path() != JN._SO
+    assert "compeg_tpu_torch" in N.library_path()
+    assert N.load()._name == N.library_path()
+
+
+def test_python_and_native_prepare_agree(monkeypatch, test_image):
+    data = stream(test_image, "420", 2, 40, 72)
+    native_pf = Decoder(device="cpu").prepare(data)
+    monkeypatch.setattr(N, "available", lambda: False)
+    python_pf = Decoder(device="cpu").prepare(data)
+    assert python_pf.packer == "python"
+    if native_pf.packer == "native":
+        assert np.array_equal(native_pf.rows, python_pf.rows)
+
+
+def test_split_intervals_rejects_a_wrong_count(test_image):
+    data = stream(test_image, "422", 1, 16, 32)
+    img = M.analyze(data)
+    scan = bytes(img.scan_data)
+    n = img.total_restart_intervals
+    assert S.split_intervals(scan, n) == JS.split_intervals(scan, n)
+    with pytest.raises(CompegError, match="restart intervals"):
+        S.split_intervals(scan, n + 1)
+    with pytest.raises(CompegError, match="too small"):
+        S.to_device_layout(S.split_intervals(scan, n), 1)
+    assert (S.SEGMENTS_PER_BLOCK, S.GUARD_WORDS) == (
+        JS.SEGMENTS_PER_BLOCK, JS.GUARD_WORDS)
+
+
+@pytest.mark.parametrize("retained", [64, 32, 1])
+def test_luts_operators_are_equal(retained):
+    rng = np.random.default_rng(3)
+    qz = rng.integers(1, 256, (4, 64)).astype(np.int32)
+    assert np.array_equal(L.dct_basis(), JL.dct_basis())
+    assert np.array_equal(L.idct_matrix_zigzag(retained),
+                          JL.idct_matrix_zigzag(retained))
+    assert np.array_equal(L.idct_dequant_matrices(qz, retained),
+                          JL.idct_dequant_matrices(qz, retained))
+    for k in (1, 2, 4, 8):
+        assert np.array_equal(L.scaled_idct_matrix_zigzag(k, retained),
+                              JL.scaled_idct_matrix_zigzag(k, retained)), k
+        assert np.array_equal(
+            L.scaled_idct_dequant_matrices(qz, k, retained),
+            JL.scaled_idct_dequant_matrices(qz, k, retained)), k
+    assert not hasattr(L, "idct_dequant_matrices_paired")
+
+
+def test_integer_idct_specification_is_equal():
+    """idct_2d_rows on random int16-range blocks, whose int32 sums wrap."""
+    rng = np.random.default_rng(5)
+    blocks = rng.integers(-32768, 32768, (8, 8, 257)).astype(np.int32)
+    cols = [[blocks[r, c] for c in range(8)] for r in range(8)]
+    with np.errstate(over="ignore"):
+        ours, theirs = I.idct_2d_rows(cols), JI.idct_2d_rows(cols)
+        one = I.idct_1d(cols[3], 11)
+        jone = JI.idct_1d(cols[3], 11)
+    for r in range(8):
+        assert np.array_equal(one[r], jone[r])
+        for c in range(8):
+            assert np.array_equal(ours[r][c], theirs[r][c]), (r, c)
+    assert I.descale(np.int32(-5), 2) == JI.descale(np.int32(-5), 2)
+    assert (I.CONST_BITS, I.PASS1_BITS) == (JI.CONST_BITS, JI.PASS1_BITS)
+    assert not hasattr(I, "mxu_operators")
+
+
+def test_profiling_stage_stats_behave_like_the_jax_packages(test_image):
+    import torch
+
+    P.reset_stats()
+    JP.reset_stats()
+    for mod in (P, JP):
+        with mod.stage_timer("parse"):
+            pass
+        with mod.stage_timer("parse"):
+            pass
+    ours, theirs = P.get_stats(), JP.get_stats()
+    assert ours.keys() == theirs.keys() == {"parse"}
+    assert ours["parse"].count == theirs["parse"].count == 2
+    assert [f.name for f in dataclasses.fields(ours["parse"])] == [
+        f.name for f in dataclasses.fields(theirs["parse"])]
+    assert ours["parse"].mean_ms >= 0 and P.StageStats().mean_ms == 0.0
+    P.log_stats()
+    # the Decoder feeds the port's stats, not the JAX package's
+    Decoder(device="cpu").prepare(stream(test_image, "422", 1, 16, 16))
+    assert {"parse", "preprocess"} <= P.get_stats().keys()
+    assert JP.get_stats().keys() == {"parse"}
+    P.reset_stats()
+    assert P.get_stats() == {}
+    # device timing needs a device: no host clock under that name
+    cpu = torch.zeros(4)
+    P.hard_sync(cpu)
+    P.hard_sync((cpu, cpu))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.trace_device_ms(lambda: cpu)

@@ -9,6 +9,7 @@ What the CPU can check of the kernels' interface runs here: the launch
 parameter block matches the C struct, and a CPU tensor takes the plain
 version."""
 
+import ctypes
 import os
 import re
 
@@ -23,7 +24,10 @@ from compeg_tpu_torch.ops import _build  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
 from compeg_tpu_torch.ops import idct as D  # noqa: E402
+from compeg_tpu_torch.ops import relayout as R  # noqa: E402
+from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder  # noqa: E402
 from compeg_tpu_torch.pipeline import Decoder  # noqa: E402
+from compeg_tpu_torch.tools import exp_relayout  # noqa: E402
 from test_torch_smoke_vectors import golden_planes, zrl_stream  # noqa: E402
 
 CASES = [("422", 1), ("444", 1), ("420", 1), ("440", 1), ("411", 1),
@@ -170,15 +174,25 @@ def test_zigzag_table_mirrors_compeg_tables():
 
 
 def test_entry_points_are_defined_in_the_source():
-    """Every C entry point the binding declares exists in csrc/decode.cu
-    with as many pointer arguments, plus the params and the stream."""
-    with open(os.path.join(_build.CSRC, "decode.cu")) as f:
-        src = f.read()
+    """Every C entry point the binding declares exists in csrc/decode.cu or
+    csrc/relayout.cu with as many pointer arguments, plus its params struct
+    and the stream."""
+    src = {}
+    for name in ("decode.cu", "relayout.cu"):
+        with open(os.path.join(_build.CSRC, name)) as f:
+            src[name] = f.read()
     for name, n in _build.ENTRY_POINTS.items():
-        sig = re.search(name + r"\((.*?)\)", src, re.S)[1]
+        relayout = name.startswith("compeg_relayout_")
+        text = src["relayout.cu" if relayout else "decode.cu"]
+        sig = re.search(name + r"\((.*?)\)", text, re.S)[1]
         args = [a for a in sig.split(",")]
         assert len(args) == n + 2, name
-        assert "DecodeParams" in args[n] and "stream" in args[n + 1], name
+        struct = "RelayoutParams" if relayout else "DecodeParams"
+        assert struct in args[n] and "stream" in args[n + 1], name
+    # ... and the sources define no entry point the binding lacks.
+    defined = set(re.findall(r"^int (compeg_\w+)\(", "".join(src.values()),
+                             re.M))
+    assert defined == set(_build.ENTRY_POINTS)
 
 
 def test_params_mirror_the_c_struct():
@@ -191,6 +205,27 @@ def test_params_mirror_the_c_struct():
     py_fields = [(n, getattr(t, "_length_", 1)) for n, t in
                  _build.DecodeParams._fields_]
     assert [(n, int(k or 1)) for n, k in c_fields] == py_fields
+
+
+def test_relayout_params_mirror_the_c_struct():
+    with open(os.path.join(_build.CSRC, "relayout.cu")) as f:
+        body = re.search(r"struct RelayoutParams \{(.*?)\};", f.read(),
+                         re.S)[1]
+    c_fields = re.findall(r"^\s*long long (\w+);", body, re.M)
+    assert c_fields == [n for n, _ in _build.RelayoutParams._fields_]
+    assert all(t is ctypes.c_int64 for _, t in _build.RelayoutParams._fields_)
+    assert set(_build.LAUNCHES) >= {"interleave", "swap_crop", "stack",
+                                    "spread_merge"}
+
+
+def test_params_of_a_batch():
+    one = _build.make_params(7, 3, 2, 13, (0, 0, 1, 2),
+                             samplings=((2, 1), (1, 1), (1, 1)))
+    assert (one.frames, one.frame_rows) == (1, 0)
+    four = _build.make_params(7, 3, 2, 13, (0, 0, 1, 2),
+                              samplings=((2, 1), (1, 1), (1, 1)), frames=4,
+                              frame_rows=1024)
+    assert (four.frames, four.frame_rows, four.nseg) == (4, 1024, 7)
 
 
 def test_params_layout_of_420():
@@ -225,3 +260,122 @@ def test_wrappers_check_their_inputs(test_image):
                          g.du_to_comp)
     with pytest.raises(ValueError, match="lq_t"):
         F.fused_decode_rgba(rows, pf.nseg, pf.tables, pf.op[:1], g)
+
+
+# -- batches, streams and relayouts on the card ------------------------------
+
+BATCH_CASES = [("422", 1, 48, 128), ("422", 5, 16, 48), ("420", 5, 40, 136),
+               ("444", 3, 24, 40), ("gray", 1, 17, 37)]
+
+
+def batch_frames(sampling, ri, h, w, test_image, n=4):
+    return [encoder.encode(test_image(h, w, "noise", seed=s),
+                           sampling=sampling, quality=90,
+                           restart_interval_mcus=ri) for s in range(n)]
+
+
+@pytest.mark.parametrize("sampling,ri,h,w", BATCH_CASES)
+@pytest.mark.parametrize("mode", ["float", "exact", "fancy"])
+def test_batched_kernels_equal_the_single_frame_launches(
+        cuda, mode, sampling, ri, h, w, test_image):
+    """One launch for the batch: every frame equals its own single-frame
+    launch bit for bit, segment counts that are no multiple of 32 and short
+    last intervals included, and the exact modes equal golden."""
+    frames = batch_frames(sampling, ri, h, w, test_image)
+    knobs = {"float": {}, "exact": {"exact_idct": True},
+             "fancy": {"exact_idct": True, "fancy_upsampling": True}}[mode]
+    key = {"float": "fused", "exact": "fused_exact", "fancy": "planes"}[mode]
+    bdec = BatchDecoder(device=cuda, **knobs)
+    out = counted(key, lambda: bdec.decode_prepared(
+        bdec.prepare_batch(frames)))
+    dec = Decoder(device=cuda, **knobs)
+    for i, f in enumerate(frames):
+        assert torch.equal(out[i], dec.decode_prepared(dec.prepare(f))), i
+    rgb = bdec.to_rgb(out)
+    assert not np.array_equal(rgb[0], rgb[1])
+    if mode == "exact":
+        for i, f in enumerate(frames):
+            assert np.array_equal(rgb[i], golden.decode_rgb(f, idct="int"))
+    if mode == "float":
+        for i, f in enumerate(frames):
+            d = np.abs(rgb[i].astype(int) - golden.decode_rgb(f).astype(int))
+            assert d.max() <= 1
+
+
+def test_stream_on_the_card_yields_each_frame_in_order(cuda, test_image):
+    """Frames that differ, more of them than staging buffers, through the
+    pinned ring, the copy stream and the readback stream."""
+    base = batch_frames("422", 1, 48, 128, test_image, n=5)
+    frames = [base[i % 5] for i in range(40)]
+    dec = Decoder(device=cuda)
+    want = [dec.decode(f) for f in base]
+    for threads, depth in ((1, 1), (3, 2), (8, 4)):
+        sd = StreamDecoder(device=cuda, prepare_threads=threads, depth=depth)
+        before = _build.LAUNCHES["fused"]
+        got = list(sd.decode_iter_rgb(frames))
+        assert _build.LAUNCHES["fused"] == before + 40
+        assert len(got) == 40
+        for i, g in enumerate(got):
+            assert np.array_equal(g, want[i % 5]), (threads, depth, i)
+        dev = [sd.to_rgb(o) for o in sd.decode_iter(frames[:7])]
+        assert all(np.array_equal(g, want[i % 5]) for i, g in enumerate(dev))
+
+
+def test_relayout_kernels_equal_numpy_and_count_their_launches(cuda):
+    before = dict(_build.LAUNCHES)
+    results = exp_relayout.probes(cuda, reps=1, groups=2)
+    assert all(r["ok"] for r in results), [r["probe"] for r in results
+                                           if not r["ok"]]
+    for key in ("interleave", "swap_crop", "stack", "spread_merge"):
+        assert _build.LAUNCHES[key] > before[key], key
+
+
+@pytest.mark.parametrize("x,l,n", [(16, 128, 5), (1, 128, 3), (33, 70, 2),
+                                   (64, 31, 4), (7, 5, 9)])
+def test_relayout_transposes_at_ragged_sizes(cuda, x, l, n):
+    """Tiles that the 32 x 32 tile does not divide, against the plain
+    versions (exact)."""
+    v = torch.randint(0, 1 << 24, (n, 3, x, l), dtype=torch.int32,
+                      device=cuda)
+    got = counted("interleave", R.relayout_interleave, v)
+    assert torch.equal(got, R.relayout_interleave_reference(v))
+    strided = v[:, 1]
+    got = counted("interleave", R.relayout_interleave, strided)
+    assert torch.equal(got, R.relayout_interleave_reference(strided))
+    stk = v.reshape(n, 3, 1, x, l)
+    assert torch.equal(counted("stack", R.relayout_stack, stk),
+                       R.relayout_stack_reference(stk))
+    a, b = v[0, 0], v[1, 2]
+    assert torch.equal(counted("spread_merge", R.relayout_spread_merge, a, b,
+                               x),
+                       R.relayout_spread_merge_reference(a, b, x))
+
+
+@pytest.mark.parametrize("h,w", [(2160, 3840), (100, 2048), (65, 2049),
+                                 (1, 1)])
+def test_swap_crop_kernel_equals_plain_at_partial_edges(cuda, h, w):
+    x = 16
+    n_tr = -(-h // 64)
+    n_tc = -(-w // (x * 128))
+    slab = torch.randint(0, 1 << 24, (n_tr, 64, n_tc * x * 128),
+                         dtype=torch.int32, device=cuda)
+    got = counted("swap_crop", R.relayout_swap_crop, slab, x, h, w)
+    assert torch.equal(got, R.relayout_swap_crop_reference(slab, x, h, w))
+    assert torch.equal(R.relayout_swap_crop(R.swap_crop_inverse(got, x, 64),
+                                            x, h, w), got)
+
+
+def test_trace_device_ms_times_the_decode_on_the_card(cuda, test_image):
+    from compeg_tpu_torch import profiling
+
+    data, pf, rows = prepared(cuda, "422", 1, test_image, h=48, w=128)
+    dec = Decoder(device=cuda)
+    pf = dec.prepare(data)
+    total, rows_ = profiling.trace_device_ms(
+        lambda: dec.decode_prepared(pf), frames=3)
+    assert 0 < total < 1000
+    # torch.profiler's kernel rows, where it sees the device
+    for ms_, count, name in rows_:
+        assert ms_ > 0 and count >= 0 and isinstance(name, str)
+    print("trace_device_ms:", total, rows_[:3])
+    profiling.hard_sync(dec.decode_prepared(pf))

@@ -19,9 +19,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from compeg_tpu import encoder, golden  # noqa: E402
-from compeg_tpu.errors import CompegError  # noqa: E402
 from compeg_tpu.pipeline import Decoder as JaxDecoder  # noqa: E402
-from compeg_tpu_torch import Decoder, decode_rgb  # noqa: E402
+from compeg_tpu_torch import CompegError, Decoder, decode_rgb  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,9 +62,9 @@ def test_decoder_reuse_across_frames_hits_header_cache(test_image):
 
 
 def test_python_packer_without_the_native_library(monkeypatch, test_image):
-    """Without compeg_tpu's native library the scan is packed by the Python
+    """Without the port's native library the scan is packed by the Python
     twin (scan.split_intervals), header-cache hits included."""
-    from compeg_tpu import native
+    from compeg_tpu_torch import native
 
     monkeypatch.setattr(native, "available", lambda: False)
     dec = Decoder(device="cpu")

@@ -1,0 +1,130 @@
+"""ops/relayout.py on the CPU: each plain version against the expression the
+JAX tool computes its ``want`` with (numpy, exact), at the probes' shapes cut
+down to G = 2; P2's inverse-then-forward round trip on a small decode; and
+what the wrappers refuse. The CUDA kernels are held to the same answers in
+tests/test_torch_kernels.py and chip_smoke.py, on the card."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from compeg_tpu import encoder  # noqa: E402
+from compeg_tpu_torch import Decoder  # noqa: E402
+from compeg_tpu_torch.ops import relayout as R  # noqa: E402
+from compeg_tpu_torch.tools import exp_relayout  # noqa: E402
+
+G, S, RR, X, L = 2, 8, 8, 16, 128
+
+
+def random_u32(shape, seed=0):
+    return np.random.default_rng(seed).integers(0, 1 << 24, shape,
+                                                dtype=np.uint32)
+
+
+def t(a):
+    return torch.from_numpy(a.view(np.int32))
+
+
+def u(x):
+    return x.numpy().view(np.uint32)
+
+
+def test_interleave_is_ref_interleave():
+    x = random_u32((G, S, RR, X, L))
+    want = x.transpose(0, 1, 2, 4, 3).reshape(G, S, RR, L * X)
+    assert np.array_equal(u(R.relayout_interleave(t(x))), want)
+    stacked = R.relayout_interleave(t(x), stack_rows=True)
+    assert np.array_equal(u(stacked), want.reshape(G, S * RR, L * X))
+    # out[g, s*R + r, l*X + x] = in[g, s, r, x, l]
+    assert u(stacked)[1, 3 * RR + 5, 7 * X + 2] == x[1, 3, 5, 2, 7]
+    # a 2-D matrix and a strided batch
+    assert np.array_equal(u(R.relayout_interleave(t(x)[0, 0, 0])),
+                          x[0, 0, 0].T.reshape(-1))
+    assert np.array_equal(u(R.relayout_interleave(t(x)[0, :, 0])),
+                          x[0, :, 0].transpose(0, 2, 1).reshape(S, -1))
+
+
+def test_swap_crop_is_the_assembly_swap():
+    n_tr, rt, n_tc = 2, 64, 2
+    slab = random_u32((n_tr, rt, n_tc * X * L))
+    h, w = n_tr * rt - 16, 3840
+    want = (slab.reshape(n_tr * rt, n_tc, X, L).transpose(0, 1, 3, 2)
+            .reshape(n_tr * rt, n_tc * L * X)[:h, :w])
+    got = u(R.relayout_swap_crop(t(slab), X, h, w))
+    assert np.array_equal(got, want)
+    # out[r*RT + t, c*L*X + l*X + x] = slab[r, t, c*X*L + x*L + l]
+    assert got[1 * rt + 9, 1 * L * X + 5 * X + 3] == slab[
+        1, 9, 1 * X * L + 3 * L + 5]
+
+
+@pytest.mark.parametrize("sampling,h,w", [("422", 40, 72), ("420", 33, 50)])
+def test_swap_crop_round_trip_on_a_decode(sampling, h, w, test_image):
+    data = encoder.encode(test_image(h, w, "noise"), sampling=sampling,
+                          restart_interval_mcus=1)
+    dec = Decoder(device="cpu")
+    pf = dec.prepare(data)
+    img = dec.decode_prepared(pf)
+    g = pf.geom
+    mh = 8 * max(v for _, v in g.samplings)
+    mw = 8 * max(hh for hh, _ in g.samplings)
+    slab = R.swap_crop_inverse(img, g.ri * mw, S * mh)
+    assert slab.shape == (-(-h // (S * mh)), S * mh,
+                          -(-w // (mw * 128)) * mw * 128)
+    assert torch.equal(R.relayout_swap_crop(slab, g.ri * mw, h, w), img)
+
+
+def test_stack_is_want_stack():
+    x = random_u32((G, S, RR, X, L))
+    want = x.transpose(0, 3, 1, 2, 4).reshape(G, X, S * RR, L)
+    got = u(R.relayout_stack(t(x)))
+    assert np.array_equal(got, want)
+    assert got[1, 4, 6 * RR + 2, 99] == x[1, 6, 2, 4, 99]
+
+
+def test_spread_merge_and_copy_are_the_bisect_constructs():
+    x = random_u32((S, RR, X, L))
+    a, b = t(x)[:, 0, 0, :], t(x)[:, 0, 1, :]
+    spread = np.repeat(x[:, 0, 0, :], X, axis=1)
+    assert np.array_equal(u(R.relayout_spread(a, X)), spread)
+    want = np.where((np.arange(L * X)[None, :] & (X - 1)) == 0, spread,
+                    np.repeat(x[:, 0, 1, :], X, axis=1))
+    assert np.array_equal(u(R.relayout_spread_merge(a, b, X)), want)
+    assert np.array_equal(u(R.relayout_copy(a)), x[:, 0, 0, :])
+    assert np.array_equal(u(R.relayout_copy(t(x))), x)
+    inter = np.zeros((S, L * X), np.uint32)
+    for k in range(X):
+        inter[:, k::X] = x[:, 0, k, :]
+    assert np.array_equal(u(R.relayout_interleave(t(x)[:, 0])), inter)
+    assert np.array_equal(u(R.relayout_stack(t(x)[None])[0, 0]),
+                          x[:, :, 0, :].reshape(S * RR, L))
+
+
+def test_the_tool_checks_every_probe_on_the_cpu():
+    results = exp_relayout.probes("cpu", groups=1)
+    assert len(results) == 11 and all(r["ok"] for r in results)
+    assert {r["name"] for r in results} == {
+        "relayout_interleave", "relayout_swap_crop", "relayout_stack",
+        "relayout_spread_merge"}
+    # a CPU run states no device time
+    assert all(r["ms"] is None and r["library_ms"] is None for r in results)
+    assert "not measured" in exp_relayout.report(results[0])
+    first = results[0]
+    assert first["bytes"] == 2 * 1 * S * RR * X * L * 4
+    assert first["bound_ms"] == pytest.approx(first["bytes"] / 3.35e12 * 1e3)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = t(random_u32((G, S, RR, X, L)))
+    with pytest.raises(ValueError, match="int32"):
+        R.relayout_stack(x.float())
+    with pytest.raises(ValueError, match="dimensions"):
+        R.relayout_stack(x[0])
+    with pytest.raises(ValueError, match="stack_rows"):
+        R.relayout_interleave(x[0, 0, 0], stack_rows=True)
+    with pytest.raises(ValueError, match="whole number"):
+        R.relayout_swap_crop(x.reshape(G, 64, -1)[:, :, :100], X, 8, 8)
+    with pytest.raises(ValueError, match="outside the slab"):
+        R.relayout_swap_crop(x.reshape(G, 64, -1), X, G * 64 + 1, 8)
+    with pytest.raises(ValueError, match="share shape"):
+        R.relayout_spread_merge(x[0, 0, 0], x[0, 0, 0, :4], X)

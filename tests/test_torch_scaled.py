@@ -9,9 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from compeg_tpu import analyze, encoder, golden  # noqa: E402
-from compeg_tpu.errors import CompegError  # noqa: E402
 from compeg_tpu.pipeline import Decoder as JaxDecoder  # noqa: E402
-from compeg_tpu_torch import Decoder  # noqa: E402
+from compeg_tpu_torch import CompegError, Decoder  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
 from compeg_tpu_torch.ops import idct as D  # noqa: E402
 from test_torch_smoke_vectors import rgb_ids  # noqa: E402

@@ -12,7 +12,15 @@ golden's answers travel to it in this file:
 * for the 4K benchmark frame, digests of golden's coefficients, float and
   integer RGB, integer planes and fancy + integer RGB, and golden's float
   and scaled RGB on three MCU rows. All of it comes from one
-  ``decode_coefficients`` call.
+  ``decode_coefficients`` call;
+* small batches of frames that differ (segment counts that are no multiple
+  of 32, short last intervals, 4:2:0 for the fancy filter) with golden's
+  float, integer and fancy answer for every frame;
+* the answers of the 64-frame 4K batch: frame i is the benchmark frame with
+  its restart segments rotated by 240 * i (``testdata.rotate_restart_
+  segments``), its answer golden's picture rolled up by 8 * i pixel rows:
+  the digest of the rolled integer RGB for every i, and of the rolled float
+  and fancy RGB for a few.
 
 These tests recompute all of it with compeg_tpu's encoder, golden decoder
 and colour functions and must find the file's contents; the port's plain
@@ -37,7 +45,7 @@ from compeg_tpu import analyze, encoder, golden  # noqa: E402
 from compeg_tpu import huffman as H  # noqa: E402
 from compeg_tpu.ops import color as JC  # noqa: E402
 from compeg_tpu.ops.luts import idct_matrix_zigzag  # noqa: E402
-from compeg_tpu_torch import testdata  # noqa: E402
+from compeg_tpu_torch import BatchDecoder, testdata  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.pipeline import Decoder  # noqa: E402
 
@@ -264,16 +272,22 @@ def bench4k_vectors() -> dict:
     rgb = golden_rgb(img, golden.idct_pixels_raw(coeffs, img))
     pix_int = golden.idct_pixels_int(coeffs, img)
     rows = np.concatenate([np.arange(r, r + 8) for r in BENCH_MCU_ROWS])
+    rgbi = golden_rgb(img, pix_int)
+    fancy = jax_fancy_rgb(img, golden.assemble_planes(img, pix_int))
     out = {
         "bench4k_jpeg_sha256": np.array(hashlib.sha256(data).hexdigest()),
         "bench4k_coeffs_sha256": np.array(testdata.digest(coeffs)),
         "bench4k_rgb_sha256": np.array(testdata.digest(rgb)),
         "bench4k_rows": rows.astype(np.int32),
         "bench4k_rgb_rows": rgb[rows],
-        "bench4k_rgbi_sha256": np.array(
-            testdata.digest(golden_rgb(img, pix_int))),
-        "bench4k_fancy_sha256": np.array(testdata.digest(
-            jax_fancy_rgb(img, golden.assemble_planes(img, pix_int)))),
+        "bench4k_rgbi_sha256": np.array(testdata.digest(rgbi)),
+        "bench4k_fancy_sha256": np.array(testdata.digest(fancy)),
+        # The 64-frame batch: golden's answers rolled by whole MCU rows.
+        "bench4k_roll_samples": np.array(BENCH_ROLL_SAMPLES, np.int32),
+        "bench4k_rgbi_roll_sha256": rolled_digests(rgbi, range(BENCH_BATCH)),
+        "bench4k_rgb_roll_sha256": rolled_digests(rgb, BENCH_ROLL_SAMPLES),
+        "bench4k_fancy_roll_sha256": rolled_digests(fancy,
+                                                    BENCH_ROLL_SAMPLES),
     }
     for c, p in enumerate(golden_planes(img, pix_int)):
         out[f"bench4k_plane{c}_sha256"] = np.array(testdata.digest(p))
@@ -287,6 +301,46 @@ def bench4k_vectors() -> dict:
     return out
 
 
+# (label, sampling, restart interval, height, width), four frames each
+BATCH_CASES = [
+    ("422 ri=1 48x128", "422", 1, 48, 128),  # 48 segments: 32 + a part
+    ("422 ri=5 16x48", "422", 5, 16, 48),    # a short last interval
+    ("420 ri=5 40x136", "420", 5, 40, 136),  # short last interval, fancy v
+    ("444 ri=3 24x40", "444", 3, 24, 40),    # intervals wrapping MCU rows
+]
+BATCH_FRAMES = 4
+BENCH_BATCH = 64
+BENCH_ROLL_SAMPLES = (0, 1, 37, 63)  # frames whose float and fancy digests
+
+
+def batch_stream(c: int, f: int) -> bytes:
+    _, sampling, ri, h, w = BATCH_CASES[c]
+    return encoder.encode(smoke_image(h, w, seed=100 + f), sampling=sampling,
+                          quality=90, restart_interval_mcus=ri)
+
+
+def batch_vectors(c: int) -> dict:
+    out = {}
+    for f in range(BATCH_FRAMES):
+        data = batch_stream(c, f)
+        img = analyze(data)
+        pix_int = golden.idct_pixels_int(
+            golden.decode_coefficients(img, dequant=False), img)
+        out[f"batch{c}_jpeg_{f}"] = np.frombuffer(data, np.uint8)
+        out[f"batch{c}_rgb_{f}"] = golden.decode_rgb(data)
+        out[f"batch{c}_rgbi_{f}"] = golden_rgb(img, pix_int)
+        out[f"batch{c}_fancy_{f}"] = jax_fancy_rgb(
+            img, golden.assemble_planes(img, pix_int))
+    return out
+
+
+def rolled_digests(rgb: np.ndarray, frames) -> np.ndarray:
+    """Digests of ``rgb`` rolled up by one 4:2:2 MCU row (8 pixel rows) per
+    frame index."""
+    return np.array([testdata.digest(np.roll(rgb, -8 * i, axis=0))
+                     for i in frames])
+
+
 def write_vectors(path: str = testdata.PATH) -> None:
     arrays = {
         "labels": np.array([c[0] for c in CASES]),
@@ -295,6 +349,9 @@ def write_vectors(path: str = testdata.PATH) -> None:
     for i in range(len(CASES)):
         arrays.update(case_vectors(i))
     arrays.update(compat_vectors())
+    arrays["batch_labels"] = np.array([c[0] for c in BATCH_CASES])
+    for c in range(len(BATCH_CASES)):
+        arrays.update(batch_vectors(c))
     arrays.update(bench4k_vectors())
     np.savez_compressed(path, **arrays)
 
@@ -315,6 +372,72 @@ def test_stream_vectors_are_golden(i, stored):
     assert str(stored["labels"][i]) == CASES[i][0]
     assert int(stored["retained"][i]) == CASES[i][5]
     assert_stored(stored, case_vectors(i))
+
+
+@pytest.mark.parametrize("c", range(len(BATCH_CASES)),
+                         ids=[c[0] for c in BATCH_CASES])
+def test_batch_vectors_are_golden(c, stored):
+    assert str(stored["batch_labels"][c]) == BATCH_CASES[c][0]
+    assert_stored(stored, batch_vectors(c))
+
+
+@pytest.mark.parametrize("c", range(len(BATCH_CASES)),
+                         ids=[c[0] for c in BATCH_CASES])
+def test_plain_batch_reproduces_stored_answers(c, stored):
+    """What chip_smoke holds the batched K2, K2x and K3 to on the card, here
+    through their plain twins: float within 1, integer and fancy exactly,
+    every frame in its own place."""
+    frames = [stored[f"batch{c}_jpeg_{f}"].tobytes()
+              for f in range(BATCH_FRAMES)]
+    got = BatchDecoder(device="cpu").decode(frames).astype(int)
+    exact = BatchDecoder(device="cpu", exact_idct=True).decode(frames)
+    fancy = BatchDecoder(device="cpu", exact_idct=True,
+                         fancy_upsampling=True).decode(frames)
+    for f in range(BATCH_FRAMES):
+        assert np.abs(got[f] - stored[f"batch{c}_rgb_{f}"]).max() <= 1, f
+        assert np.array_equal(exact[f], stored[f"batch{c}_rgbi_{f}"]), f
+        assert np.array_equal(fancy[f], stored[f"batch{c}_fancy_{f}"]), f
+    assert not np.array_equal(exact[0], exact[1])
+
+
+def test_rotated_segments_roll_the_picture():
+    """testdata.rotate_restart_segments on a small stream with 8 MCUs per
+    row: rotating by 8 * i segments is golden's picture rolled up by i MCU
+    rows, and the marker numbering stays valid for the Python parser."""
+    data = encoder.encode(smoke_image(64, 128), sampling="422", quality=90,
+                          restart_interval_mcus=1)
+    img = analyze(data)
+    assert img.width_mcus == 8 and img.total_restart_intervals == 64
+    want = golden.decode_rgb(data, idct="int")
+    for i in (0, 1, 5, 7):
+        rot = testdata.rotate_restart_segments(
+            data, img.scan_offset, len(img.scan_data), 8 * i)
+        assert len(rot) == len(data)
+        assert np.array_equal(golden.decode_rgb(rot, idct="int"),
+                              np.roll(want, -8 * i, axis=0)), i
+        got = Decoder(device="cpu", exact_idct=True).decode(rot)
+        assert np.array_equal(got, np.roll(want, -8 * i, axis=0)), i
+    with pytest.raises(ValueError):
+        testdata.rotate_restart_segments(data, img.scan_offset,
+                                         len(img.scan_data), 3)
+
+
+def test_the_packer_accepts_the_rotated_4k_frames():
+    """Frame i of chip_smoke's 64-frame batch: the port's packer takes it,
+    and its rows are the benchmark frame's rows rotated by 240 * i."""
+    with open(BENCH, "rb") as f:
+        data = f.read()
+    dec = Decoder(device="cpu")
+    pf = dec.prepare(data)
+    img = pf.image
+    assert (img.width_mcus, img.restart_interval) == (240, 1)
+    assert pf.nseg == 64800 and pf.nseg % 8 == 0
+    for i in (1, 63):
+        rot = testdata.rotate_restart_segments(
+            data, img.scan_offset, len(img.scan_data), 240 * i)
+        rows = dec.prepare(rot).rows[: pf.nseg]
+        assert np.array_equal(rows, np.roll(pf.rows[: pf.nseg], -240 * i,
+                                            axis=0)), i
 
 
 def test_compat_vectors_are_golden(stored):
