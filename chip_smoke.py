@@ -17,8 +17,14 @@ is another picture) through BatchDecoder on K2, K2x and K3, one launch per
 batch, and through StreamDecoder in order, against golden's stored answers
 and the single-frame decode. Then the four relayout kernels: the probe tool
 compeg_tpu_torch/tools/exp_relayout.py at the probes' shapes and on the 4K
-decode, and each kernel against its plain version. Any failure exits
-non-zero. The last three lines are the kernels JSON, the card's nvidia-smi
+decode, each kernel against its plain version, and the copy at aligned and
+misaligned pointers and ragged lengths, timed beside torch's clone(). Any
+failure exits non-zero. The default decode of the 4K frame must equal
+golden's byte for byte (its sha256), the small rasters must take both the
+16-byte and the word-wise store of the RGBA kernels, and a kernel's time is
+a burst of launches between two CUDA events, enqueued behind a spinning
+kernel so that they run back to back, divided by their number. The
+last three lines are the kernels JSON, the card's nvidia-smi
 name and power limit, and the result JSON. Needs one CUDA device.
 
 It imports compeg_tpu_torch, which stands on its own host layer, and neither
@@ -43,6 +49,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "bench_assets", "bench4k.jpg")
 REPS = 20
+BURST = 8  # launches between two CUDA events: the card's time, not the host's
 PLAIN_REPS = 5  # the plain twins take 50-90 ms a call at 4K
 SCALES = (1, 2, 4)
 SOURCE = "compeg_tpu_torch/csrc/decode.cu"
@@ -77,21 +84,15 @@ def pixel_stats(got: np.ndarray, want: np.ndarray):
     return int(d.max()), float((d > 1).mean())
 
 
-def cuda_ms(fn, reps=REPS, warmup=2):
-    import torch
+def cuda_ms(fn, reps=REPS, warmup=2, burst=BURST):
+    """Median over ``reps`` of the card's time per call of ``burst`` calls
+    of ``fn`` (compeg_tpu_torch.profiling.burst_ms)."""
+    from compeg_tpu_torch.profiling import burst_ms
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(burst_ms(lambda i: fn(), burst)
+                             for _ in range(reps))
 
 
 def wall_ms(fn, reps=REPS):
@@ -221,11 +222,19 @@ def main() -> int:
 
     # ---- (c) small streams ---------------------------------------------------
     vec = testdata.load()
+    stores = {"16-byte": [], "word-wise": []}  # rasters by the RGBA store
     for i, label in enumerate(vec["labels"]):
         data = vec[f"jpeg_{i}"].tobytes()
         retained = int(vec["retained"][i])
-        _, _, k1, k1_err, k2_rgb, plain_rgb, alpha_ok = kernels_and_plain(
+        pf_i, _, k1, k1_err, k2_rgb, plain_rgb, alpha_ok = kernels_and_plain(
             data, retained)
+        for k in (8,) + SCALES:
+            # whole quads: MCUs and rows of a multiple of four pixels
+            gk = F.scaled_geometry(pf_i.geom, k)
+            mcu_w = F.composite_offsets(tuple(pf_i.geom.samplings), k)[0]
+            whole = mcu_w % 4 == 0 and gk.width % 4 == 0
+            stores["16-byte" if whole else "word-wise"].append(
+                f"{gk.height}x{gk.width}" + ("" if k == 8 else f" (k={k})"))
         want = vec[f"coeffs_{i}"]
         require(k1.shape == want.shape and np.array_equal(k1, want)
                 and not k1_err,
@@ -271,6 +280,13 @@ def main() -> int:
             f"golden integer planes == plain K3; fancy == plain == JAX "
             f"colour functions; K2s k=1,2,4 max {worst} from golden and plain "
             f"(tolerance: exact; K2s max 1)")
+
+    for kind, seen in stores.items():
+        log(f"(c) rasters written with the {kind} RGBA store: "
+            f"{sorted(set(seen))}")
+    require("17x37" in stores["word-wise"] and any(
+        "(k=" in r for r in stores["word-wise"]) and "24x40" in
+        stores["16-byte"], f"the small streams miss a store: {stores}")
 
     # The ZRL stream under the compat semantics, and random int16-range
     # blocks whose integer IDCT wraps int32.
@@ -323,11 +339,14 @@ def main() -> int:
     }
     for name, (mx, frac) in checks.items():
         log(f"(d) {name}: max {mx}, frac>1 {frac:.3g}")
-    same = testdata.digest(main_rgb) == str(vec["bench4k_rgb_sha256"])
-    log(f"(d) decode() bit-identical to golden.decode_rgb (sha256): {same}")
     require(alpha_ok and all(mx <= 2 and frac <= 1e-5
                              for mx, frac in checks.values()),
             "4K decode outside the PARITY.md envelope")
+    # K2's sum keeps the plain sum's terms and their order, which on this
+    # frame gives golden's bytes: held to the digest, not only the envelope.
+    require(testdata.digest(main_rgb) == str(vec["bench4k_rgb_sha256"]),
+            "4K: decode() is not golden.decode_rgb byte for byte (sha256)")
+    log("(d) decode() bit-identical to golden.decode_rgb (sha256)")
 
     # The integer kernels against their plain twins on every pixel.
     pfx, rowsx = exact_frame(data4k)
@@ -454,25 +473,26 @@ def main() -> int:
             lambda k=k: F.fused_decode_scaled(*base, lq[k], g, k))
     plain = {
         "K2": cuda_ms(lambda: F.fused_decode_rgba_reference(*base, pf.op, g),
-                      reps=PLAIN_REPS, warmup=1),
+                      reps=PLAIN_REPS, warmup=1, burst=1),
         "K1": cuda_ms(lambda: E.entropy_decode_reference(
             *base, g.ri, g.total_mcus, g.du_to_comp), reps=PLAIN_REPS,
-            warmup=1),
+            warmup=1, burst=1),
         "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact_reference(
-            *base, qz, g), reps=PLAIN_REPS, warmup=1),
+            *base, qz, g), reps=PLAIN_REPS, warmup=1, burst=1),
         "K3 int": cuda_ms(lambda: F.fused_decode_planes_reference(
-            *base, qz, g, exact=True), reps=PLAIN_REPS, warmup=1),
+            *base, qz, g, exact=True), reps=PLAIN_REPS, warmup=1, burst=1),
         "K3 float": cuda_ms(lambda: F.fused_decode_planes_reference(
-            *base, pf.op, g), reps=PLAIN_REPS, warmup=1),
+            *base, pf.op, g), reps=PLAIN_REPS, warmup=1, burst=1),
     }
     for k in SCALES:
         plain[f"K2s k={k}"] = cuda_ms(
             lambda k=k: F.fused_decode_scaled_reference(*base, lq[k], g, k),
-            reps=PLAIN_REPS, warmup=1)
+            reps=PLAIN_REPS, warmup=1, burst=1)
     for name in ms:
         log(f"(f) {name} at 4K: {ms[name]:.4f} ms, plain twin "
-            f"{plain[name]:.4f} ms (medians of {REPS} and {PLAIN_REPS} "
-            f"CUDA-event timings) on {card}")
+            f"{plain[name]:.4f} ms (medians of {REPS} CUDA-event timings "
+            f"of {BURST} launches each, and of {PLAIN_REPS} single calls) on "
+            f"{card}")
     # Device time of one decode_prepared (upload, kernel and the gaps), and
     # what torch.profiler sees of it.
     trace_ms, trace_rows = profiling.trace_device_ms(
@@ -614,11 +634,12 @@ def main() -> int:
     rows_b = bd_t._staging.tensor.to("cuda")
     batch_ms = {
         "K2": cuda_ms(lambda: F.fused_decode_rgba(
-            rows_b, pf.nseg, pf.tables, pf.op, g), reps=5) / BATCH,
+            rows_b, pf.nseg, pf.tables, pf.op, g), reps=5, burst=1) / BATCH,
         "K2x": cuda_ms(lambda: F.fused_decode_rgba_exact(
-            rows_b, pf.nseg, pf.tables, qz, g), reps=5) / BATCH,
+            rows_b, pf.nseg, pf.tables, qz, g), reps=5, burst=1) / BATCH,
         "K3 int": cuda_ms(lambda: F.fused_decode_planes(
-            rows_b, pf.nseg, pf.tables, qz, g, exact=True), reps=5) / BATCH,
+            rows_b, pf.nseg, pf.tables, qz, g, exact=True), reps=5,
+            burst=1) / BATCH,
     }
     up_ms = wall_ms(lambda: bd_t._staging.tensor.to("cuda",
                                                     non_blocking=True),
@@ -703,6 +724,43 @@ def main() -> int:
         "relayout_spread_merge (and the copy) == their plain versions at "
         "the probes' shapes (exact)")
     del x5, slab
+    # The copy where its 16-byte kernel runs and where the word-wise one
+    # does, against its plain version (torch's clone), and its time beside
+    # clone's, alternating two inputs so that none waits in the L2 cache.
+    words = 2160 * 3840
+    bases = [torch.randint(0, 1 << 24, (words + 8,), dtype=torch.int32,
+                           device="cuda") for _ in range(2)]
+    views = {
+        "aligned": (lambda b: b[:words].reshape(2160, 3840), "vec"),
+        "one word off": (lambda b: b[1:1 + words].reshape(2160, 3840),
+                         "word"),
+        "4,095 words": (lambda b: b[:4095].reshape(1, 4095), "word"),
+        "strided rows": (lambda b: b[:words].reshape(2160, 3840)[:, :3836],
+                         "vec"),
+        "strided rows, ragged": (
+            lambda b: b[:words].reshape(2160, 3840)[:, 1:3838], "word"),
+    }
+    copy_ms = {}
+    for name, (view, want_route) in views.items():
+        a = view(bases[0])
+        got, copy_counts = drive(lambda: R.relayout_copy(a))
+        route = R.spread_merge_route(a.data_ptr(), got.data_ptr(), *a.shape,
+                                     1, a.stride(0))
+        err = int((got - a.clone()).abs().max())
+        rl_err["spread_merge"] = max(rl_err["spread_merge"], err)
+        require(route == want_route and copy_counts["spread_merge"] == 1
+                and err == 0 and got.is_contiguous(),
+                f"the copy, {name}: route {route} (expected {want_route}), "
+                f"launches {copy_counts['spread_merge']}, max |diff| {err}")
+        copy_ms[name] = (
+            exp_relayout.cuda_ms(lambda i: R.relayout_copy(view(bases[i % 2])),
+                                 REPS),
+            exp_relayout.cuda_ms(lambda i: view(bases[i % 2]).clone(), REPS))
+        log(f"(i) the copy, {name} ({route} kernel, {a.numel() * 4} B): == "
+            f"clone(); {copy_ms[name][0]:.4f} ms, clone() "
+            f"{copy_ms[name][1]:.4f} ms (medians of {REPS} bursts of "
+            f"{exp_relayout.BURST}) on {card}")
+    del bases
 
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
@@ -752,14 +810,14 @@ def main() -> int:
 
     launch_sets = [launches, batch_launches, {"stream": stream_launches}]
 
-    def relayout_entry(name, key, replaces, probe_name):
+    def relayout_entry(name, key, replaces, probe_name, **extra):
         res = next(r for r in tool if r["probe"] == probe_name)
         return {"name": name, "route": "cuda", "source": RELAYOUT_SOURCE,
                 "replaces": replaces, "launches": counts[key],
                 "max_abs_err": rl_err[key], "ms": res["ms"],
                 "plain_ms": res["library_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": "bytes", "library_ms": res["library_ms"],
-                "probe": probe_name, "bytes": res["bytes"]}
+                "probe": probe_name, "bytes": res["bytes"], **extra}
 
     log(json.dumps({
         "kernels": [
@@ -792,7 +850,8 @@ def main() -> int:
                            "tools/exp_assembly2.py:51", "P3 sublane stack"),
             relayout_entry("relayout_spread_merge_kernel (P4)",
                            "spread_merge", "tools/exp_mosaic_bisect.py:23",
-                           "P1 copy floor"),
+                           "P1 copy floor",
+                           copy_ms_and_clone_ms=copy_ms),
         ],
         # Ported, but on no Decoder path (the staged tier is not ported).
         "off_path_kernels": [

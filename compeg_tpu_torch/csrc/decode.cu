@@ -8,8 +8,9 @@
 // _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA assembly after
 // them. One launch decodes a batch of same-geometry frames (the JAX package
 // concatenates their blocks along the grid, compeg_tpu/batch.py:71); here
-// the frame is the grid's second dimension. Phase 1, the entropy decode, is the same in every mode; phase 2
-// (IDCT) and phase 3 (output) are chosen by the template arguments:
+// the frame is the grid's second dimension. Phase 1, the entropy decode, is
+// the same in every mode; phase 2 (IDCT) and phase 3 (output) are chosen by
+// the template arguments:
 //
 //   K2  <kIdctFloat,  kOutRgba>    fused_decode_blocks (fused.py:419), default
 //       mode: dequant + f32 8x8 IDCT -> nearest upsampling, integer BT.601,
@@ -27,36 +28,59 @@
 //       (fused.py:140-161): the k-point scaled IDCT, k in {1, 2, 4}, and the
 //       composite of k x k blocks into the [ceil(H*k/8), ceil(W*k/8)] raster
 //
-// What bounds them on the H100. K1 is bound by its bit-serial entropy
-// decode: each thread decodes one segment symbol by symbol, a chain of
-// dependent shifts, compares and table loads, and the threads of a warp
-// diverge on code lengths and symbol counts. The 4K frame (Ri 1) has 64,800
-// segments, about 2,025 warps over 132 SMs, barely one wave, so its time is
-// close to that of the slowest warps on each SM. The fused kernels run the
-// same entropy phase but are bound by their IDCT and output phases: the
-// float IDCT's warp walks the 64 coefficients of a data unit one by one from
-// shared memory, and the composite's integer index maths runs per pixel;
-// both run far below the card's FMA and memory rates and are the first
-// things to make fast (PERF.md has the measured split). The integer IDCT is
-// cheaper than the float one (about 80 integer operations per column or row
-// and no operator loads); the scaled IDCT reads only the first 1, 5 or 25
-// zigzag coefficients; K3 writes a quarter of K2's bytes, one byte per
-// sample.
+// What bounds them on the H100. None comes near the card's memory or FMA
+// rate: a 4K frame is 2 MB in and 33 MB out, microseconds of traffic. The
+// time is the entropy decode's: each thread decodes one restart segment
+// symbol by symbol, a chain of dependent shifts, compares and table loads,
+// and the 32 threads of a warp wait for the one with the most symbols in
+// every data unit. K1 is that and the stores of its 64 words per data unit.
+// In the fused kernels a block of 32 segments decodes with one warp while
+// its other warps wait, so what counts is how many blocks a multiprocessor
+// holds at once (their decoding warps run side by side), how short the
+// phases around the decode are, and how few instructions they execute: the
+// float IDCT is bound by its instruction count (a term of its sum is one FMA,
+// and the frame has millions of nonzero coefficients), the composite by
+// its index arithmetic and the width of its stores. PERF.md has the
+// measured split.
 //
-// What the design does about it: the Huffman tables live in shared memory,
-// the bit window and DC predictors in registers, and the entropy phase does
-// nothing but decode. A block keeps its segments' coefficients in shared
-// memory, so nothing but the words goes in and nothing but pixels comes out;
-// every IDCT writes its pixels over the coefficients it read. The float and
-// scaled IDCTs are spread over all four warps of the block, one warp per data
-// unit, with the operator read z-major so a warp's loads are contiguous, and
-// they skip the zero coefficients, which are the same for every lane of the
-// warp (the sum is the same FMA chain in the same order, minus terms that add
-// 0). The integer IDCT gives each data unit 8 threads, one column each and
-// then one row each, exchanging through shared memory (the reference's own
-// IDCT shape, SURVEY.md 3.4-3.5).
+// What the design does about it.
+//  * Phase 1: the block's rows and the Huffman tables come into shared
+//    memory by asynchronous copies started before anything else, so a bit
+//    reader's refill waits on shared memory, not on device memory; the bit
+//    window and DC predictors live in registers. Spreading the 32 decoding
+//    threads over several warps made it slower (every warp then runs the
+//    whole instruction stream for a few lanes), so warp 0 decodes.
+//  * The tile: a block keeps its segments' coefficients in shared memory,
+//    so nothing but the words goes in and nothing but pixels comes out;
+//    every IDCT writes its pixels over the coefficients it read. The float
+//    modes keep 16-bit elements (struct Tile), which lets eight blocks share
+//    a multiprocessor where the 32-bit tile lets five; a segment's stride is
+//    odd in words, so that the 32 segments' words of one sample lie in 32
+//    banks.
+//  * Phase 2, float: zero coefficients are skipped, found with ballots
+//    and not by walking the 64 positions, and a lane takes eight pixels
+//    of a data unit, so a nonzero costs it two 16-byte operator loads and
+//    eight FMAs (idct_float). Each pixel's sum keeps its terms and their
+//    order, so the result does not depend on how lanes and pixels are
+//    paired. A dense product on the tensor cores would do several times
+//    the arithmetic the nonzeros need, and in TF32 it would need a split
+//    operator to stay inside PARITY.md's envelope and would no longer give
+//    the plain sum bit for bit; it was not needed to get under the entropy
+//    phase's time.
+//  * Phase 2, integer: 8 threads per data unit, one column each and then
+//    one row each, exchanging through shared memory (the reference's own
+//    IDCT shape, SURVEY.md 3.4-3.5); about 80 integer operations per column
+//    or row and no operator loads. The scaled IDCT reads only the first 1,
+//    5 or 25 zigzag coefficients.
+//  * Phase 3, RGBA: the sample offsets of an MCU's pixels come from the
+//    host, a segment's place in the frame is worked out once per segment, a
+//    thread composes four neighbouring pixels and stores 16 bytes where the
+//    raster allows (composite_rgba). K3 still writes one byte per thread.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "entropy.cuh"
 #include "int_idct.cuh"
@@ -64,11 +88,57 @@
 namespace {
 
 constexpr int K1_THREADS = 128;
-constexpr int K2_SEGS = 32;      // segments per block (one per lane of warp 0)
-constexpr int K2_THREADS = 128;  // four warps share the IDCT and output
+constexpr int K2_SEG_BITS = 5;
+constexpr int K2_SEGS = 1 << K2_SEG_BITS;  // segments per block: warp 0's lanes
+constexpr int MAX_DEVICES = 64;
+// A block's rows are copied to shared memory when they take no more words
+// than this (rows of up to 64 words); longer rows are read where they lie.
+constexpr int ROW_CACHE_WORDS = 2048;
+
+__device__ __host__ __forceinline__ int row_cache_words(int words) {
+  return K2_SEGS * words <= ROW_CACHE_WORDS ? K2_SEGS * words : 0;
+}
+
+// A segment's coefficients take dus * 64 elements of the tile and one word
+// of padding: the odd stride in words puts the 32 segments' words of one
+// sample, which the composite reads together, in different banks.
+__device__ __host__ __forceinline__ int tile_stride(int dus, int elem_bytes) {
+  return dus * 64 + 4 / elem_bytes;
+}
+
+// Where MCU m of the block's segments lies in the frame, filled by warp 0
+// before each pass: MCU row and column, my < 0 for a segment that has no
+// MCU m (past the frame's end, or a short last interval).
+struct SegmentPos {
+  int my[K2_SEGS];
+  int mx[K2_SEGS];
+};
 
 enum IdctMode { kIdctFloat, kIdctInt, kIdctScaled };
 enum OutMode { kOutRgba, kOutPlanes };
+
+// The tile's element. The float IDCTs keep AC coefficients in 16 bits (an
+// AC value has at most 15 magnitude bits) and the DC, whose predictor may
+// wrap in 32 bits on garbage input, in a word of its own beside the tile:
+// half the shared memory, so more blocks on a multiprocessor. The integer
+// IDCT transforms in place in 32 bits and keeps 32-bit elements.
+//
+// A block's threads and the blocks a multiprocessor is to hold (which caps
+// the registers) follow the tile: at 4 data units per MCU eight blocks of
+// the 16-bit tile fit, of four warps each, and five of the 32-bit tile, of
+// eight warps each.
+template <int IDCT>
+struct Tile {
+  using T = short;
+  static constexpr int THREADS = 128;
+  static constexpr int BLOCKS = 8;
+};
+template <>
+struct Tile<kIdctInt> {
+  using T = int;
+  static constexpr int THREADS = 256;
+  static constexpr int BLOCKS = 5;
+};
 
 // The fused kernels' outputs: the packed RGBA raster in [0], or one u8 plane
 // per component (null past the frame's components).
@@ -78,6 +148,18 @@ struct Outputs {
 
 __device__ __forceinline__ void load_tables(int* dst, const int* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+}
+
+// Start the copy of n words to shared memory (dst 16-byte aligned) without
+// waiting for it: 16 bytes a request where src is aligned too, then the
+// words left over. __pipeline_wait_prior(0) and a barrier publish it.
+__device__ __forceinline__ void copy_async(int* dst, const int* src, int n) {
+  const int n4 = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? n >> 2 : 0;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
+  for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
+    __pipeline_memcpy_async(dst + i, src + i, 4);
+  __pipeline_commit();
 }
 
 __global__ void __launch_bounds__(K1_THREADS)
@@ -95,7 +177,7 @@ entropy_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ tables
   int4* z4 = reinterpret_cast<int4*>(seg_out);
   for (int i = 0; i < p.ri * per_mcu / 4; ++i) z4[i] = make_int4(0, 0, 0, 0);
   const int nm = segment_mcus(p, seg);
-  BitReader br;
+  BitReader<true> br;
   br.init(rows + (size_t)seg * p.words, p.words);
   int dp[3] = {0, 0, 0};
   for (int m = 0; m < nm; ++m) {
@@ -105,34 +187,119 @@ entropy_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ tables
   }
 }
 
-// Phase 2, float and scaled: pixel q = sum_z op[d][z][q] * c[z] in f32 (FMA,
-// z ascending), then +128.5, clamp to [0, 255], truncate; npx pixels per data
-// unit (64, or k*k), lane q and q + 32. op is lq_t [DUS, 64, npx].
-template <int IDCT>
-__device__ __forceinline__ void idct_float(int* coef, const float* __restrict__ op,
-                                           const DecodeParams& p, int m, int seg0) {
+// Phase 2, float: pixel q = sum_z op[d][z][q] * c[z] in f32 (FMA, z
+// ascending), then +128.5, clamp to [0, 255], truncate. op is lq_t
+// [DUS, 64, 64], 16-byte aligned.
+//
+// A warp takes four data units at a time, eight lanes each, a lane eight
+// pixels (4l..4l+3 and 32+4l..32+4l+3): one nonzero coefficient then costs a
+// lane two 16-byte operator loads and eight FMAs, where a lane with two
+// pixels paid as many instructions around two FMAs. The nonzeros are found
+// with the warp: for each of the four units every lane loads coefficients
+// `lane` and `lane + 32`, and two ballots give the unit's 64-bit mask; each
+// group of eight lanes then walks its own unit's set bits, z ascending,
+// reading the coefficient's value from the tile. Every pixel's FMA chain
+// holds the terms of the plain sum that are not zero, in the same order.
+// The units go slot by slot, a slot's 32 segments spread over the warps, so
+// every warp gets its share of the dense luma units and all warps read one
+// operator's rows at a time.
+__device__ __forceinline__ void idct_float(short* coef, const int* dc,
+                                           const float* __restrict__ op,
+                                           const DecodeParams& p,
+                                           const SegmentPos& pos) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int npx = IDCT == kIdctScaled ? p.blk * p.blk : 64;
-  const int zlen = IDCT == kIdctScaled ? p.zlen : 64;
-  for (int u = warp; u < K2_SEGS * p.dus; u += K2_THREADS / 32) {
-    const int sl = u / p.dus;
-    if (m >= segment_mcus(p, seg0 + sl)) continue;  // warp-uniform
-    const int d = u - sl * p.dus;
-    int* c = coef + u * 64;
-    const float* opd = op + (size_t)d * 64 * npx;
-    float acc0 = 0.f, acc1 = 0.f;
-    for (int z = 0; z < zlen; ++z) {
-      const int cz = c[z];
-      if (cz != 0) {
-        const float fz = (float)cz;
-        if (lane < npx) acc0 = fmaf(__ldg(opd + z * npx + lane), fz, acc0);
-        if (lane + 32 < npx) acc1 = fmaf(__ldg(opd + z * npx + lane + 32), fz, acc1);
+  const int g = lane >> 3, l = lane & 7;
+  const int stride = tile_stride(p.dus, 2);
+  for (int t0 = warp * 4; t0 < K2_SEGS * p.dus; t0 += blockDim.x / 8) {
+    const int d = t0 >> K2_SEG_BITS, sl0 = t0 & (K2_SEGS - 1);
+    unsigned lo = 0, hi = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const short* ck = coef + (sl0 + k) * stride + d * 64;
+      const int a = lane == 0 ? dc[(sl0 + k) * p.dus + d] : ck[lane];
+      const unsigned ma = __ballot_sync(0xFFFFFFFFu, a != 0);
+      const unsigned mb = __ballot_sync(0xFFFFFFFFu, ck[lane + 32] != 0);
+      if (k == g) {
+        lo = ma;
+        hi = mb;
       }
     }
+    const int sl = sl0 + g;
+    const bool live = pos.my[sl] >= 0;  // else the tile holds no MCU of it
+    if (!live) lo = hi = 0;
+    short* c = coef + sl * stride + d * 64;
+    const float4* opd = reinterpret_cast<const float4*>(op + (size_t)d * 4096) + l;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    auto term = [&](int z, float f) {
+      const float4 w0 = __ldg(opd + z * 16), w1 = __ldg(opd + z * 16 + 8);
+      acc[0] = fmaf(w0.x, f, acc[0]);
+      acc[1] = fmaf(w0.y, f, acc[1]);
+      acc[2] = fmaf(w0.z, f, acc[2]);
+      acc[3] = fmaf(w0.w, f, acc[3]);
+      acc[4] = fmaf(w1.x, f, acc[4]);
+      acc[5] = fmaf(w1.y, f, acc[5]);
+      acc[6] = fmaf(w1.z, f, acc[6]);
+      acc[7] = fmaf(w1.w, f, acc[7]);
+    };
+    if (lo & 1u) {
+      term(0, (float)dc[sl * p.dus + d]);
+      lo &= ~1u;
+    }
+    while (lo) {
+      const int z = __ffs(lo) - 1;
+      lo &= lo - 1;
+      term(z, (float)c[z]);
+    }
+    while (hi) {
+      const int z = __ffs(hi) + 31;
+      hi &= hi - 1;
+      term(z, (float)c[z]);
+    }
+    __syncwarp();  // a unit's coefficients are read before its pixels land
+    if (live) {
+      short px[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        px[i] = (short)fminf(fmaxf(acc[i] + 128.5f, 0.f), 255.f);
+      short2* lo2 = reinterpret_cast<short2*>(c + 4 * l);
+      short2* hi2 = reinterpret_cast<short2*>(c + 32 + 4 * l);
+      lo2[0] = make_short2(px[0], px[1]);
+      lo2[1] = make_short2(px[2], px[3]);
+      hi2[0] = make_short2(px[4], px[5]);
+      hi2[1] = make_short2(px[6], px[7]);
+    }
+  }
+}
+
+// Phase 2, scaled: the same sum over the first zlen (1, 5 or 25) zigzag
+// positions for npx = k * k <= 16 pixels per data unit, a warp per unit, lane
+// q pixel q. op is lq_t [DUS, 64, npx].
+__device__ __forceinline__ void idct_scaled(short* coef, const int* dc,
+                                            const float* __restrict__ op,
+                                            const DecodeParams& p,
+                                            const SegmentPos& pos) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int npx = p.blk * p.blk;
+  const int zlen = p.zlen;
+  for (int t = warp; t < K2_SEGS * p.dus; t += blockDim.x / 32) {
+    const int d = t >> K2_SEG_BITS, sl = t & (K2_SEGS - 1);
+    if (pos.my[sl] < 0) continue;  // warp-uniform
+    short* c = coef + sl * tile_stride(p.dus, 2) + d * 64;
+    const float* opd = op + (size_t)d * 64 * npx;
+    const int c0 = lane == 0 ? dc[sl * p.dus + d] : c[lane];
+    unsigned m0 = __ballot_sync(0xFFFFFFFFu, c0 != 0);
+    if (zlen < 32) m0 &= (1u << zlen) - 1u;
+    float acc = 0.f;
+    while (m0) {  // warp-uniform: the nonzero positions, z ascending
+      const int z = __ffs(m0) - 1;
+      m0 &= m0 - 1;
+      const float f = (float)__shfl_sync(0xFFFFFFFFu, c0, z);
+      if (lane < npx) acc = fmaf(__ldg(opd + z * npx + lane), f, acc);
+    }
     __syncwarp();
-    if (lane < npx) c[lane] = (int)fminf(fmaxf(acc0 + 128.5f, 0.f), 255.f);
-    if (lane + 32 < npx) c[lane + 32] = (int)fminf(fmaxf(acc1 + 128.5f, 0.f), 255.f);
+    if (lane < npx) c[lane] = (short)fminf(fmaxf(acc + 128.5f, 0.f), 255.f);
   }
 }
 
@@ -147,9 +314,10 @@ __device__ __forceinline__ void idct_int(int* coef, const int* qz_s, const int* 
                                          const DecodeParams& p) {
   using namespace int_idct;
   const int c = threadIdx.x & 7;
-  for (int u = threadIdx.x >> 3; u < K2_SEGS * p.dus; u += K2_THREADS / 8) {
-    int* blk = coef + u * 64;
-    const int* q = qz_s + (u % p.dus) * 64;
+  for (int u = threadIdx.x >> 3; u < K2_SEGS * p.dus; u += blockDim.x / 8) {
+    const int sl = u / p.dus, d = u - sl * p.dus;
+    int* blk = coef + sl * tile_stride(p.dus, 4) + d * 64;
+    const int* q = qz_s + d * 64;
     uint32_t s[8], o[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -172,59 +340,88 @@ __device__ __forceinline__ void idct_int(int* coef, const int* qz_s, const int* 
   }
 }
 
-// Phase 3, RGBA: neighbouring threads take neighbouring x of one pixel row
-// across the block's MCUs (compeg_tpu/ops/fused.py rgba_at :290-326, with
-// blk = pixels per data-unit side).
-__device__ __forceinline__ void composite_rgba(const int* coef, uint32_t* out,
-                                               const DecodeParams& p, int m,
-                                               int seg0, int blk) {
-  const int per_mcu = p.dus * 64;
-  const int max_h = max(p.comp_h[0], max(p.comp_h[1], p.comp_h[2]));
-  const int max_v = max(p.comp_v[0], max(p.comp_v[1], p.comp_v[2]));
-  const int mh = blk * (p.ncomp == 1 ? 1 : max_v);
-  const int mw = blk * (p.ncomp == 1 ? 1 : max_h);
-  const int yh = p.comp_h[0], yv = p.comp_v[0];
-  const int ch = p.comp_h[1], cv = p.comp_v[1];
-  for (int i = threadIdx.x; i < K2_SEGS * mh * mw; i += K2_THREADS) {
-    const int x = i % mw;
-    const int t = i / mw;
-    const int sl = t % K2_SEGS;
-    const int r = t / K2_SEGS;
-    const int seg = seg0 + sl;
-    if (m >= segment_mcus(p, seg)) continue;
-    const int mcu = seg * p.ri + m;
-    const int my = mcu / p.width_mcus;
-    const int mx = mcu - my * p.width_mcus;
+// One RGBA word from a luma sample and its two other component samples:
+// integer BT.601 (45/32, 11/32 + 23/32, 113/64, arithmetic shifts), clamp,
+// pack r | g << 8 | b << 16 | 0xFF << 24.
+__device__ __forceinline__ uint32_t rgba_word(const DecodeParams& p, int y,
+                                              int c1, int c2) {
+  int rr, gg, bb;
+  if (p.ncomp == 1) {
+    rr = gg = bb = y;
+  } else if (p.rgb) {
+    rr = y;
+    gg = c1;
+    bb = c2;
+  } else {
+    const int cb = c1 - 128, cr = c2 - 128;
+    rr = y + ((45 * cr) >> 5);
+    gg = y - ((11 * cb + 23 * cr) >> 5);
+    bb = y + ((113 * cb) >> 6);
+  }
+  rr = min(max(rr, 0), 255);
+  gg = min(max(gg, 0), 255);
+  bb = min(max(bb, 0), 255);
+  return (uint32_t)rr | ((uint32_t)gg << 8) | ((uint32_t)bb << 16) | 0xFF000000u;
+}
+
+// Phase 3, RGBA (compeg_tpu/ops/fused.py rgba_at :290-326). A thread takes
+// four neighbouring pixels of one pixel row of one MCU, neighbouring threads
+// neighbouring quads along that row across the block's MCUs, and a quad is
+// one 16-byte store where the raster allows it: rows of whole quads
+// (width % 4 == 0, MCUs of whole quads) from a 16-byte aligned base. Else
+// (17 x 37, the scaled sizes) the same quad goes out word by word with the
+// right edge checked. The sample offsets come from the host (p.row_off,
+// p.col_off): a thread's four columns never change, so their offsets sit in
+// registers, and a pass's row is the same for a whole warp. MCU sides are
+// powers of two (1..32), so the index split is shifts and masks.
+template <class T>
+__device__ __forceinline__ void composite_rgba(const T* coef, uint32_t* out,
+                                               const DecodeParams& p,
+                                               const SegmentPos& pos) {
+  const int mw = p.mcu_w, mh = p.mcu_h;
+  const int qw = (mw + 3) >> 2;  // quads per MCU row: 1, 2, 4 or 8
+  const int lqw = 31 - __clz(qw);
+  const int x0 = (threadIdx.x & (qw - 1)) * 4;
+  const int stride = tile_stride(p.dus, sizeof(T));
+  const int c2_off = (p.comp_slot[2] - p.comp_slot[1]) * 64;
+  const bool vec = (mw & 3) == 0 && (p.width & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  int col_y[4], col_c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int e = p.col_off[min(x0 + j, mw - 1)];
+    col_y[j] = e & 0xFFFF;
+    col_c[j] = e >> 16;
+  }
+  for (int i = threadIdx.x; i < K2_SEGS * qw * mh; i += blockDim.x) {
+    const int t = i >> lqw;
+    const int sl = t & (K2_SEGS - 1);
+    const int r = t >> K2_SEG_BITS;
+    const int my = pos.my[sl];
     const int Y = my * mh + r;
-    const int X = mx * mw + x;
-    if (Y >= p.height || X >= p.width) continue;
-    const int* px = coef + sl * per_mcu;
-    const int yslot = (r * yv / mh) * yh + (x * yh / mw);
-    const int yp = ((r * yv * blk / mh) % blk) * blk + ((x * yh * blk / mw) % blk);
-    const int y = px[yslot * 64 + yp];
-    int rr, gg, bb;
-    if (p.ncomp == 1) {
-      rr = gg = bb = y;
-    } else {
-      const int cp = (r * cv * blk / mh) * blk + (x * ch * blk / mw);
-      const int c1 = px[p.comp_slot[1] * 64 + cp];
-      const int c2 = px[p.comp_slot[2] * 64 + cp];
-      if (p.rgb) {
-        rr = y;
-        gg = c1;
-        bb = c2;
-      } else {
-        const int cb = c1 - 128, cr = c2 - 128;
-        rr = y + ((45 * cr) >> 5);
-        gg = y - ((11 * cb + 23 * cr) >> 5);
-        bb = y + ((113 * cb) >> 6);
+    const int X = pos.mx[sl] * mw + x0;
+    if (my < 0 || Y >= p.height || X >= p.width) continue;
+    const T* px = coef + sl * stride;
+    const int row_y = p.row_off[r] & 0xFFFF, row_c = p.row_off[r] >> 16;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int y = px[row_y + col_y[j]];
+      int c1 = 0, c2 = 0;
+      if (p.ncomp != 1) {
+        c1 = px[row_c + col_c[j]];
+        c2 = px[row_c + col_c[j] + c2_off];
       }
+      v[j] = rgba_word(p, y, c1, c2);
     }
-    rr = min(max(rr, 0), 255);
-    gg = min(max(gg, 0), 255);
-    bb = min(max(bb, 0), 255);
-    out[(size_t)Y * p.width + X] =
-        (uint32_t)rr | ((uint32_t)gg << 8) | ((uint32_t)bb << 16) | 0xFF000000u;
+    uint32_t* dst = out + (size_t)Y * p.width + X;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (x0 + j < mw && X + j < p.width) dst[j] = v[j];
+    }
   }
 }
 
@@ -232,52 +429,68 @@ __device__ __forceinline__ void composite_rgba(const int* coef, uint32_t* out,
 // row (my * v + k / h) * 8 + py, column (mx * h + k % h) * 8 + px for the
 // k-th data unit of a component sampled (h, v); 8 neighbouring threads write
 // 8 neighbouring bytes of one plane row.
-__device__ __forceinline__ void store_planes(const int* coef, const Outputs& o,
-                                             const DecodeParams& p, int m,
-                                             int seg0) {
+template <class T>
+__device__ __forceinline__ void store_planes(const T* coef, const Outputs& o,
+                                             const DecodeParams& p,
+                                             const SegmentPos& pos) {
   const int per_mcu = p.dus * 64;
-  for (int i = threadIdx.x; i < K2_SEGS * per_mcu; i += K2_THREADS) {
+  for (int i = threadIdx.x; i < K2_SEGS * per_mcu; i += blockDim.x) {
     const int sl = i / per_mcu;
-    const int seg = seg0 + sl;
-    if (m >= segment_mcus(p, seg)) continue;
-    const int d = (i - sl * per_mcu) >> 6;
-    const int pix = i & 63;
-    const int mcu = seg * p.ri + m;
-    const int my = mcu / p.width_mcus;
-    const int mx = mcu - my * p.width_mcus;
+    const int my = pos.my[sl], mx = pos.mx[sl];
+    if (my < 0) continue;
+    const int w = i - sl * per_mcu;
+    const int d = w >> 6;
+    const int pix = w & 63;
     const int comp = p.du_to_comp[d];
     const int h = p.comp_h[comp], v = p.comp_v[comp];
     const int k = d - p.comp_slot[comp];
     const int row = (my * v + k / h) * 8 + (pix >> 3);
     const int col = (mx * h + k % h) * 8 + (pix & 7);
     uint8_t* plane = static_cast<uint8_t*>(o.ptr[comp]);
-    plane[(size_t)row * (p.width_mcus * 8 * h) + col] = (uint8_t)coef[i];
+    plane[(size_t)row * (p.width_mcus * 8 * h) + col] =
+        (uint8_t)coef[sl * tile_stride(p.dus, sizeof(T)) + w];
   }
 }
 
 template <int IDCT, int OUT>
-__global__ void __launch_bounds__(K2_THREADS)
+__global__ void __launch_bounds__(Tile<IDCT>::THREADS, Tile<IDCT>::BLOCKS)
 fused_decode_kernel(const uint32_t* __restrict__ rows,
                     const int* __restrict__ tables, const void* __restrict__ op,
                     const Outputs outs, const DecodeParams p) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) int smem[];
+  using T = typename Tile<IDCT>::T;
   int* tab = smem;
-  int* coef = smem + MAX_TABLE_INTS;  // [K2_SEGS][dus][64], pixels after IDCT
+  // [K2_SEGS][tile_stride]: a segment's [dus][64] coefficients, its pixels
+  // after the IDCT; with 16-bit elements the DC values lie in dc_s.
+  T* coef = reinterpret_cast<T*>(smem + MAX_TABLE_INTS);
+  const int stride = tile_stride(p.dus, sizeof(T));
+  const int tile_words = K2_SEGS * stride * (int)sizeof(T) / 4;
+  __shared__ int dc_s[sizeof(T) == 2 ? K2_SEGS * 6 : 1];
   // Integer mode: the quantizers [dus][64] and the zigzag table.
   __shared__ int qz_s[IDCT == kIdctInt ? 6 * 64 : 1];
   __shared__ int zz_s[IDCT == kIdctInt ? 64 : 1];
-  load_tables(tab, tables, p.ncomp * 2 * TAB_INTS);
-  if (IDCT == kIdctInt) {
-    load_tables(qz_s, static_cast<const int*>(op), p.dus * 64);
-    for (int i = threadIdx.x; i < 64; i += K2_THREADS) zz_s[i] = int_idct::kZigzag[i];
-  }
-
+  __shared__ SegmentPos pos;
   const int tid = threadIdx.x;
   // A batch stacks its frames along blockIdx.y: segments, MCUs and output
   // coordinates below are the frame's own, and only the row and output
   // pointers move with the frame, so no block straddles two frames.
   const size_t frame = blockIdx.y;
   rows += frame * p.frame_rows * p.words;
+  const int seg0 = blockIdx.x * K2_SEGS;
+  // The block's rows lie one after the other: bring them, then the tables,
+  // into shared memory while the block sets itself up, so that the bit
+  // readers' refills do not wait on device memory.
+  int* row_cache = smem + MAX_TABLE_INTS + tile_words;
+  const bool cached = row_cache_words(p.words) > 0;
+  if (cached)
+    copy_async(row_cache, reinterpret_cast<const int*>(rows) + (size_t)seg0 * p.words,
+               min(K2_SEGS, p.nseg - seg0) * p.words);
+  copy_async(tab, tables, p.ncomp * 2 * TAB_INTS);
+  if (IDCT == kIdctInt) {
+    load_tables(qz_s, static_cast<const int*>(op), p.dus * 64);
+    for (int i = threadIdx.x; i < 64; i += blockDim.x) zz_s[i] = int_idct::kZigzag[i];
+  }
+
   Outputs out = outs;
   if (OUT == kOutPlanes) {
     const size_t height_mcus = p.total_mcus / p.width_mcus;
@@ -289,48 +502,75 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
     out.ptr[0] = static_cast<uint32_t*>(out.ptr[0]) +
                  frame * p.height * (size_t)p.width;
   }
-  const int seg0 = blockIdx.x * K2_SEGS;
-  const int per_mcu = p.dus * 64;
   // Segment counts only shrink at the frame's end, so the block's first
   // segment has the most MCUs.
   const int m_end = segment_mcus(p, seg0);
 
-  // Phase-1 state of this thread's segment (threads 0..K2_SEGS-1).
-  const int my_seg = seg0 + tid;
-  const int my_nm = tid < K2_SEGS ? segment_mcus(p, my_seg) : 0;
-  BitReader br;
-  if (my_nm > 0) br.init(rows + (size_t)my_seg * p.words, p.words);
+  // Phase-1 state of the segment this thread decodes: the block's segment
+  // `slot`, or none (slot < 0) past warp 0.
+  const int slot = tid < K2_SEGS ? tid : -1;
+  const int my_seg = seg0 + slot;
+  const int my_nm = slot >= 0 ? segment_mcus(p, my_seg) : 0;
+  BitReader<false> br;
+  if (my_nm > 0)
+    br.init(cached ? reinterpret_cast<const uint32_t*>(row_cache) + slot * p.words
+                   : rows + (size_t)my_seg * p.words,
+            p.words);
   int dp[3] = {0, 0, 0};
 
   for (int m = 0; m < m_end; ++m) {
-    for (int i = tid; i < K2_SEGS * per_mcu; i += K2_THREADS) coef[i] = 0;
-    __syncthreads();  // also publishes the tables on the first pass
+    // decode_mcu stores only DC and nonzero AC: zero the tile, 16 bytes a
+    // store (its length, 32 strides, is a whole number of them).
+    uint4* tile4 = reinterpret_cast<uint4*>(coef);
+    for (int i = tid; i < tile_words / 4; i += blockDim.x)
+      tile4[i] = make_uint4(0, 0, 0, 0);
+    if (slot >= 0) {
+      const int mcu = my_seg * p.ri + m;
+      const int row = mcu / p.width_mcus;
+      pos.my[slot] = m < my_nm ? row : -1;
+      pos.mx[slot] = mcu - row * p.width_mcus;
+    }
+    __pipeline_wait_prior(0);  // the rows and tables, on the first pass
+    __syncthreads();
 
     // ---- phase 1: entropy decode of MCU m of each segment ----------------
     if (m < my_nm) {
-      int* c = coef + tid * per_mcu;
-      decode_mcu(br, dp, tab, p,
-                 [&](int d, int pos, int v) { c[d * 64 + pos] = v; });
+      T* c = coef + slot * stride;
+      int* dc = dc_s + slot * p.dus;
+      decode_mcu(br, dp, tab, p, [&](int d, int z, int v) {
+        if (sizeof(T) == 2 && z == 0)
+          dc[d] = v;
+        else
+          c[d * 64 + z] = (T)v;
+      });
     }
     __syncthreads();
 
     // ---- phase 2: dequant + IDCT, pixels over the coefficients -----------
-    if (IDCT == kIdctInt) {
+    if constexpr (IDCT == kIdctInt) {
       idct_int(coef, qz_s, zz_s, p);
+    } else if constexpr (IDCT == kIdctScaled) {
+      idct_scaled(coef, dc_s, static_cast<const float*>(op), p, pos);
     } else {
-      idct_float<IDCT>(coef, static_cast<const float*>(op), p, m, seg0);
+      idct_float(coef, dc_s, static_cast<const float*>(op), p, pos);
     }
     __syncthreads();
 
     // ---- phase 3: output --------------------------------------------------
     if (OUT == kOutPlanes) {
-      store_planes(coef, out, p, m, seg0);
+      store_planes(coef, out, p, pos);
     } else {
-      composite_rgba(coef, static_cast<uint32_t*>(out.ptr[0]), p, m, seg0,
-                     IDCT == kIdctScaled ? p.blk : 8);
+      composite_rgba(coef, static_cast<uint32_t*>(out.ptr[0]), p, pos);
     }
     __syncthreads();  // the next MCU's zeroing overwrites these pixels
   }
+}
+
+// Bytes of dynamic shared memory a block takes: the tables, the tile of
+// elem_bytes elements and the rows.
+inline size_t fused_smem_bytes(const DecodeParams& p, int elem_bytes) {
+  return sizeof(int) * (MAX_TABLE_INTS + row_cache_words(p.words)) +
+         (size_t)K2_SEGS * tile_stride(p.dus, elem_bytes) * elem_bytes;
 }
 
 template <int IDCT, int OUT>
@@ -338,12 +578,22 @@ int launch_fused(const void* rows, const void* tables, const void* op,
                  Outputs out, const DecodeParams* p, void* stream) {
   if (p->nseg > 0 && p->frames > 0) {
     auto kernel = fused_decode_kernel<IDCT, OUT>;
-    const size_t smem = sizeof(int) * (MAX_TABLE_INTS + (size_t)K2_SEGS * p->dus * 64);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const size_t smem = fused_smem_bytes(*p, sizeof(typename Tile<IDCT>::T));
+    // More than 48 KB of dynamic shared memory has to be allowed, once for
+    // each instantiation and device; the most allowed so far is kept.
+    static std::atomic<size_t> allowed[MAX_DEVICES];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (smem > allowed[dev].load(std::memory_order_acquire)) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed[dev].store(smem, std::memory_order_release);
+    }
     const dim3 grid((p->nseg + K2_SEGS - 1) / K2_SEGS, p->frames);
-    kernel<<<grid, K2_THREADS, smem, (cudaStream_t)stream>>>(
+    kernel<<<grid, Tile<IDCT>::THREADS, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)rows, (const int*)tables, op, out, *p);
   }
   return (int)cudaGetLastError();

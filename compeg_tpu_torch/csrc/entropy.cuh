@@ -49,6 +49,14 @@ struct DecodeParams {
   int zlen;        // zigzag positions the scaled IDCT reads (its nonzero prefix)
   int frames;      // frames in the launch (fused kernels; the grid's y)
   int frame_rows;  // rows between two frames' first rows (>= nseg)
+  // The RGBA composite's sample offsets, from ops/fused.composite_offsets:
+  // pixel (r, x) of an MCU reads luma element (row_off[r] & 0xFFFF) +
+  // (col_off[x] & 0xFFFF) of its segment's tile and chroma element
+  // (row_off[r] >> 16) + (col_off[x] >> 16), data unit d at d * 64.
+  int mcu_w;       // output pixels per MCU: blk * max h by blk * max v
+  int mcu_h;
+  int row_off[16];
+  int col_off[32];
 };
 
 // One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:
@@ -68,6 +76,9 @@ __device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg) {
   return left < p.ri ? (int)left : p.ri;
 }
 
+// kLdg: the row lies in device memory and is read through the read-only
+// path; otherwise `row` may point into shared memory.
+template <bool kLdg>
 struct BitReader {
   const uint32_t* row;
   int last;       // index of the row's last word
@@ -87,7 +98,8 @@ struct BitReader {
   // is 1..32 and never reaches 64.
   __device__ __forceinline__ void refill() {
     if (nbits < 32) {
-      uint32_t w = __ldg(row + (widx < last ? widx : last));
+      const uint32_t* at = row + (widx < last ? widx : last);
+      uint32_t w = kLdg ? __ldg(at) : *at;
       win |= (uint64_t)w << (32 - nbits);
       ++widx;
       nbits += 32;
@@ -103,7 +115,8 @@ __device__ __forceinline__ int extend(int v, int s) {
 
 // Decode one symbol with table `tab`; returns the symbol value and sets the
 // magnitude width `s` (DC: min(value, 15), AC: value & 15) and its raw bits.
-__device__ __forceinline__ int decode_symbol(BitReader& br, const int* tab,
+template <class Reader>
+__device__ __forceinline__ int decode_symbol(Reader& br, const int* tab,
                                              bool dc, int& s, int& mag) {
   br.refill();
   const int c16 = (int)(br.win >> 48);
@@ -125,8 +138,8 @@ __device__ __forceinline__ int decode_symbol(BitReader& br, const int* tab,
 // (still quantized) coefficient at zigzag position `pos`; the target must be
 // zeroed beforehand, since only DC and nonzero AC values are stored.
 // `dp` holds the DC predictors, reset by the caller at segment start.
-template <class Put>
-__device__ __forceinline__ void decode_mcu(BitReader& br, int* dp,
+template <class Reader, class Put>
+__device__ __forceinline__ void decode_mcu(Reader& br, int* dp,
                                            const int* tables,
                                            const DecodeParams& p, Put put) {
   for (int d = 0; d < p.dus; ++d) {

@@ -22,7 +22,8 @@
 //       out[s, l*X + k] = (k == 0 ? a : b)[s, l]; with b = a it is the X-fold
 //       spread, and with X = 1 the plain copy, the store-bandwidth floor of
 //       the probes (copy_kernel, exp_interleave.py:56; copy_epilogue_kernel,
-//       exp_assembly2.py:44).
+//       exp_assembly2.py:44). Its vector forms are relayout_copy_vec_kernel
+//       and relayout_spread_merge_vec_kernel.
 //
 // The Pallas probes asked which of many formulations of one permutation
 // (repeat + mask, tree interleave, strided stores) the TPU's compiler could
@@ -30,13 +31,20 @@
 // word, so each permutation is written once.
 //
 // What bounds them on the H100: bytes. Each kernel reads every input word
-// once and writes every output word once (67 MB for the 4K raster's 33.5 MB,
-// about 0.02 ms at 3.35 TB/s). What the design does about it: both sides of
-// every copy are coalesced. The two transposes go through a 32 x 33 padded
-// shared-memory tile: a warp reads 32 consecutive l of one x, and the block
-// writes the tile's output range in memory order (runs of min(X, 32) words),
-// the padding keeping the transposed shared-memory reads free of bank
-// conflicts. The stack moves 16-byte vectors where the row length allows.
+// once and writes every output word once (67 MB for the 4K raster's 33.5 MB).
+// What the design does about it: both sides of every copy are coalesced.
+// The two transposes go through a 32 x 33 padded shared-memory tile: a warp
+// reads 32 consecutive l of one x, and the block writes the tile's output
+// range in memory order (runs of min(X, 32) words), the padding keeping the
+// transposed shared-memory reads free of bank conflicts. The stack moves
+// 16-byte vectors where the row length allows. The copy moves 16-byte
+// vectors with several loads of each thread in flight before its first
+// store, from a grid sized to the card, and the spread and merge write
+// 16-byte vectors; all three index in 32 bits when the sizes fit and divide
+// only where rows are strided or X is no power of two. The word-per-thread
+// kernel remains for pointers and lengths that vectors do not fit; the
+// wrapper picks by pointers, strides and lengths
+// (ops/relayout.spread_merge_route).
 
 #include <cuda_runtime.h>
 
@@ -53,6 +61,7 @@ struct RelayoutParams {
   long long w;          // swap_crop: output columns kept (the row pitch)
   long long sr;         // stack: S * R rows that change places with x
   long long g;          // stack: groups
+  long long vec;        // spread_merge: 16-byte kernels (the wrapper's choice)
 };
 
 namespace {
@@ -129,22 +138,127 @@ relayout_stack_kernel(const T* __restrict__ in, T* __restrict__ out,
   out[i] = in[((g * p.sr + sr) * p.x + x) * lv + v];
 }
 
+// The spread, merge and copy, a word per thread: for pointers or lengths that
+// 16-byte vectors do not fit. Idx is 32 bits wide whenever the word counts
+// fit it.
+template <class Idx>
 __global__ void __launch_bounds__(256)
 relayout_spread_merge_kernel(const uint32_t* __restrict__ a,
                              const uint32_t* __restrict__ b,
-                             uint32_t* __restrict__ out, const RelayoutParams p) {
-  const long long total = p.n * p.l * p.x;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+                             uint32_t* __restrict__ out, Idx n, Idx l, Idx x,
+                             Idx in_stride) {
+  const Idx total = n * l * x;
+  const Idx i = (Idx)blockIdx.x * 256 + threadIdx.x;
   if (i >= total) return;
-  const long long k = i % p.x;
-  const long long sl = i / p.x;  // (s, l)
-  const long long s = sl / p.l;
-  const long long src = s * p.in_stride + (sl - s * p.l);
+  const Idx k = i % x;
+  const Idx sl = i / x;  // (s, l)
+  const Idx s = sl / l;
+  const Idx src = s * in_stride + (sl - s * l);
   out[i] = k == 0 ? a[src] : b[src];
 }
 
 inline unsigned blocks_of(long long total, int threads) {
   return (unsigned)((total + threads - 1) / threads);
+}
+
+constexpr int COPY_IN_FLIGHT = 4;
+
+// The copy (X = 1) in 16-byte vectors: `rows` rows of `lv` vectors,
+// `in_stride` vectors apart in the input (one row when the input is
+// contiguous). A thread loads COPY_IN_FLIGHT vectors, a grid's width apart,
+// before it stores the first, so that many loads of each thread are in
+// flight; the grid is sized to the card and strides over the rest.
+template <class Idx>
+__global__ void __launch_bounds__(256)
+relayout_copy_vec_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+                         Idx rows, Idx lv, Idx in_stride) {
+  const Idx total = rows * lv;
+  const Idx step = (Idx)gridDim.x * 256;
+  for (Idx v = (Idx)blockIdx.x * 256 + threadIdx.x; v < total;
+       v += COPY_IN_FLIGHT * step) {
+    uint4 r[COPY_IN_FLIGHT];
+#pragma unroll
+    for (int k = 0; k < COPY_IN_FLIGHT; ++k) {
+      const Idx i = v + k * step;
+      if (i < total) r[k] = in[rows == 1 ? i : (i / lv) * in_stride + i % lv];
+    }
+#pragma unroll
+    for (int k = 0; k < COPY_IN_FLIGHT; ++k) {
+      const Idx i = v + k * step;
+      if (i < total) out[i] = r[k];
+    }
+  }
+}
+
+// The spread and merge (X > 1) from the store side: a thread owns 16 bytes
+// of the output, `rows` rows of `qpr` such quads (one row when the input is
+// contiguous), and reads the source word of each of its four words; a power
+// of two X (shift >= 0) divides by a shift.
+template <class Idx>
+__global__ void __launch_bounds__(256)
+relayout_spread_merge_vec_kernel(const uint32_t* __restrict__ a,
+                                 const uint32_t* __restrict__ b,
+                                 uint4* __restrict__ out, Idx rows, Idx qpr,
+                                 Idx x, int shift, Idx in_stride) {
+  const Idx total = rows * qpr;
+  const Idx step = (Idx)gridDim.x * 256;
+  for (Idx q = (Idx)blockIdx.x * 256 + threadIdx.x; q < total; q += step) {
+    const Idx row = rows == 1 ? 0 : q / qpr;
+    const Idx w0 = (q - row * qpr) * 4;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Idx w = w0 + j;
+      const Idx sl = shift >= 0 ? w >> shift : w / x;
+      const Idx src = row * in_stride + sl;
+      v[j] = w == sl * x ? a[src] : b[src];
+    }
+    out[q] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// A grid for `items` work items of a grid-stride kernel: enough blocks for
+// them, at most 16 for each multiprocessor of the current device.
+inline cudaError_t card_grid(long long items, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (items + 255) / 256;
+  *blocks = (unsigned)(want < 16LL * sms ? want : 16LL * sms);
+  return err;
+}
+
+template <class Idx>
+cudaError_t launch_spread_merge(const void* a, const void* b, void* out,
+                                const RelayoutParams* p, cudaStream_t stream) {
+  const long long total = p->n * p->l * p->x;
+  // Contiguous input rows are one long row.
+  const bool flat = p->n == 1 || p->in_stride == p->l;
+  const Idx rows = (Idx)(flat ? 1 : p->n);
+  unsigned blocks = 0;
+  if (!p->vec) {
+    relayout_spread_merge_kernel<Idx><<<blocks_of(total, 256), 256, 0, stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (Idx)p->n,
+        (Idx)p->l, (Idx)p->x, (Idx)p->in_stride);
+  } else if (p->x == 1) {
+    const cudaError_t err = card_grid(
+        (total / 4 + COPY_IN_FLIGHT - 1) / COPY_IN_FLIGHT, &blocks);
+    if (err != cudaSuccess) return err;
+    relayout_copy_vec_kernel<Idx><<<blocks, 256, 0, stream>>>(
+        (const uint4*)a, (uint4*)out, rows, (Idx)(total / 4 / rows),
+        (Idx)(p->in_stride / 4));
+  } else {
+    const cudaError_t err = card_grid(total / 4, &blocks);
+    if (err != cudaSuccess) return err;
+    int shift = -1;
+    if ((p->x & (p->x - 1)) == 0)
+      for (shift = 0; (1LL << shift) < p->x; ++shift) {}
+    relayout_spread_merge_vec_kernel<Idx><<<blocks, 256, 0, stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint4*)out, rows,
+        (Idx)(total / 4 / rows), (Idx)p->x, shift, (Idx)p->in_stride);
+  }
+  return cudaGetLastError();
 }
 
 inline unsigned tiles_of(const RelayoutParams* p) {
@@ -199,16 +313,21 @@ int compeg_relayout_stack(const void* in, void* out, const RelayoutParams* p,
   return (int)cudaGetLastError();
 }
 
-// out[s, l * X + k] = (k == 0 ? a : b)[s * in_stride + l], s < n.
+// out[s, l * X + k] = (k == 0 ? a : b)[s * in_stride + l], s < n. With
+// p->vec the caller vouches for what the 16-byte kernels need
+// (ops/relayout.spread_merge_route).
 int compeg_relayout_spread_merge(const void* a, const void* b, void* out,
                                  const RelayoutParams* p, void* stream) {
   const long long total = p->n * p->l * p->x;
-  if (total > 0) {
-    relayout_spread_merge_kernel<<<blocks_of(total, 256), 256, 0,
-                                   (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, *p);
-  }
-  return (int)cudaGetLastError();
+  if (total <= 0) return (int)cudaGetLastError();
+  // 32-bit indices when every word index fits them with room to spare: a
+  // grid-stride index passes the end by up to a few grid widths.
+  const long long in_words = p->n * p->in_stride;
+  const long long reach = in_words > total ? in_words : total;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(reach < (1LL << 31) - (1LL << 24)
+                   ? launch_spread_merge<int>(a, b, out, p, s)
+                   : launch_spread_merge<long long>(a, b, out, p, s));
 }
 
 }  // extern "C"

@@ -86,6 +86,10 @@ class DecodeParams(ctypes.Structure):
         ("zlen", ctypes.c_int32),
         ("frames", ctypes.c_int32),
         ("frame_rows", ctypes.c_int32),
+        ("mcu_w", ctypes.c_int32),
+        ("mcu_h", ctypes.c_int32),
+        ("row_off", ctypes.c_int32 * 16),
+        ("col_off", ctypes.c_int32 * 32),
     ]
 
 
@@ -93,16 +97,20 @@ class RelayoutParams(ctypes.Structure):
     """Mirror of ``RelayoutParams`` in csrc/relayout.cu (all int64)."""
 
     _fields_ = [(name, ctypes.c_int64) for name in (
-        "n", "x", "l", "in_stride", "tiles", "h", "w", "sr", "g")]
+        "n", "x", "l", "in_stride", "tiles", "h", "w", "sr", "g", "vec")]
 
 
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
-                blk=8, zlen=64, frames=1, frame_rows=0) -> DecodeParams:
+                blk=8, zlen=64, frames=1, frame_rows=0,
+                composite=None) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
     kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
     ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
-    and ``frame_rows``, the rows between two frames' first rows."""
+    and ``frame_rows``, the rows between two frames' first rows.
+    ``composite`` is ``(mcu_w, mcu_h, row_off, col_off)`` of
+    :func:`compeg_tpu_torch.ops.fused.composite_offsets`, read by the RGBA
+    kernels."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -115,6 +123,13 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
         zrl17=int(zrl17), blk=blk, zlen=zlen, frames=frames,
         frame_rows=frame_rows,
     )
+    if composite is not None:
+        p.mcu_w, p.mcu_h, row_off, col_off = composite
+        if len(row_off) > 16 or len(col_off) > 32:
+            raise ValueError(f"MCU of {p.mcu_w} x {p.mcu_h} pixels is "
+                             "larger than 32 x 16")
+        p.row_off[:len(row_off)] = row_off
+        p.col_off[:len(col_off)] = col_off
     slot = 0
     for i, c in enumerate(du_to_comp):
         p.du_to_comp[i] = c
@@ -124,9 +139,9 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
     return p
 
 
-def _sources():
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))), sorted(
-        glob.glob(os.path.join(CSRC, "*.cuh"))
+def _sources(csrc: str = CSRC):
+    return sorted(glob.glob(os.path.join(csrc, "*.cu"))), sorted(
+        glob.glob(os.path.join(csrc, "*.cuh"))
     )
 
 
@@ -145,8 +160,8 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    cu, cuh = _sources()
+def library_path(csrc: str = CSRC) -> str:
+    cu, cuh = _sources(csrc)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in cu + cuh:
         with open(path, "rb") as f:
@@ -154,11 +169,11 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcompeg_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _compile(so: str) -> None:
+def _compile(so: str, csrc: str = CSRC) -> None:
     """One ``nvcc -c`` per source, all running at once, then the link."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    cu, _ = _sources()
+    cu, _ = _sources(csrc)
     stem = f"{so}.{os.getpid()}"
     objs = [f"{stem}.{os.path.basename(src)}.o" for src in cu]
     procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
@@ -189,41 +204,51 @@ def _compile(so: str) -> None:
                 os.remove(obj)
 
 
+def load(csrc: str = CSRC) -> ctypes.CDLL:
+    """Build (unless a library of these very sources exists) and bind the
+    kernel sources in ``csrc``: the package's own, or another tree with the
+    same entry points that a tool wants to time beside them."""
+    so = library_path(csrc)
+    if not os.path.exists(so):
+        _compile(so, csrc)
+    lib = ctypes.CDLL(so)
+    for name, npointers in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        # data pointers, then the params struct pointer and the stream
+        fn.argtypes = [ctypes.c_void_p] * (npointers + 2)
+        fn.restype = ctypes.c_int
+    lib.compeg_error_string.argtypes = [ctypes.c_int]
+    lib.compeg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use. Raises if the build fails."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            _compile(so)
-        lib = ctypes.CDLL(so)
-        for name, npointers in ENTRY_POINTS.items():
-            fn = getattr(lib, name)
-            # data pointers, then the params struct pointer and the stream
-            fn.argtypes = [ctypes.c_void_p] * (npointers + 2)
-            fn.restype = ctypes.c_int
-        lib.compeg_error_string.argtypes = [ctypes.c_int]
-        lib.compeg_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = load()
+        return _lib
 
 
-def launch(name: str, *tensors, params: ctypes.Structure) -> None:
+def launch(name: str, *tensors, params: ctypes.Structure,
+           lib: Optional[ctypes.CDLL] = None) -> None:
     """Launch C entry point ``name`` on the current stream of the tensors'
     device (a ``None`` tensor passes a null pointer); raises with the CUDA
-    error string if the launch failed."""
+    error string if the launch failed. ``lib`` is a library of :func:`load`
+    other than the package's own."""
     import torch
 
-    lib = library()
+    lib = lib or library()
     dev = tensors[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = getattr(lib, name)(
-            *[None if t is None else t.data_ptr() for t in tensors],
-            ctypes.byref(params), stream,
-        )
+    args = [None if t is None else t.data_ptr() for t in tensors]
+    fn = getattr(lib, name)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, ctypes.byref(params), stream)
+    else:  # switching the device costs more than a short kernel runs
+        with torch.cuda.device(dev):
+            rc = fn(*args, ctypes.byref(params), stream)
     if rc != 0:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {rc} "

@@ -30,6 +30,7 @@ concatenates the frames' blocks along its grid, compeg_tpu/batch.py:71-114.)
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -48,6 +49,9 @@ def _check_op(op: torch.Tensor, shape, dtype, device, name: str) -> None:
             f"{name} must be contiguous {list(shape)} {dtype} on {device}, "
             f"got {op.dtype} {tuple(op.shape)} on {op.device}"
         )
+    if op.is_cuda and op.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         "kernels load it in vectors)")
 
 
 def _frames(rows: torch.Tensor) -> Optional[int]:
@@ -74,6 +78,36 @@ def _check_args(rows, nseg, tables, op, geom, npx: Optional[int]) -> bool:
     return rows.device.type == "cpu"
 
 
+@functools.lru_cache(maxsize=None)
+def composite_offsets(samplings: Tuple[Tuple[int, int], ...], blk: int = 8):
+    """The RGBA kernels' sample offsets, ``(mcu_w, mcu_h, row_off,
+    col_off)``: pixel ``(r, x)`` of an MCU of ``mcu_h`` x ``mcu_w`` output
+    pixels reads the luma element ``(row_off[r] & 0xFFFF) + (col_off[x] &
+    0xFFFF)`` of its segment's tile and the second component's element
+    ``(row_off[r] >> 16) + (col_off[x] >> 16)`` (the third lies its slot
+    distance further). A tile holds 64 elements per data unit, of which the
+    first ``blk * blk`` are its pixels in raster order. The offsets split
+    into a row and a column term because ``rgba_at``
+    (compeg_tpu/ops/fused.py:290-326) does; the plain twin's
+    :func:`_composite_index` computes the same samples pixel by pixel."""
+    gray = len(samplings) == 1
+    max_h = 1 if gray else max(h for h, _ in samplings)
+    max_v = 1 if gray else max(v for _, v in samplings)
+    mh, mw = blk * max_v, blk * max_h
+    yh, yv = samplings[0]
+    ch, cv = samplings[0] if gray else samplings[1]
+    slot1 = 0 if gray else yh * yv
+    row_off, col_off = [], []
+    for r in range(mh):
+        luma = (r * yv // mh) * yh * 64 + (r * yv * blk // mh % blk) * blk
+        chroma = slot1 * 64 + (r * cv * blk // mh) * blk
+        row_off.append(luma | chroma << 16)
+    for x in range(mw):
+        luma = (x * yh // mw) * 64 + x * yh * blk // mw % blk
+        col_off.append(luma | (x * ch * blk // mw) << 16)
+    return mw, mh, tuple(row_off), tuple(col_off)
+
+
 def _params(rows, nseg, tables, geom, blk=8):
     return _build.make_params(
         nseg, rows.shape[-1], geom.ri, geom.total_mcus, geom.du_to_comp,
@@ -81,6 +115,7 @@ def _params(rows, nseg, tables, geom, blk=8):
         width_mcus=geom.width_mcus, rgb=geom.rgb, zrl17=tables.zrl17,
         blk=blk, zlen=SCALED_ZLEN.get(blk, 64), frames=_frames(rows) or 1,
         frame_rows=rows.shape[-2],
+        composite=composite_offsets(tuple(map(tuple, geom.samplings)), blk),
     )
 
 

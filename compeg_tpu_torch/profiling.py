@@ -87,6 +87,33 @@ def hard_sync(x) -> None:
         torch.cuda.synchronize(x.device)
 
 
+SPIN_CYCLES = 3_000_000  # about 1.7 ms of an H100's clock
+
+
+def burst_ms(fn, burst: int = 8) -> float:
+    """The card's time per call, in ms, of ``burst`` calls ``fn(0)`` ..
+    ``fn(burst - 1)`` between two CUDA events on the current stream.
+
+    The calls are enqueued while the card still spins in a kernel launched
+    just before the first event, so they run back to back and the time is
+    the card's, whatever the host takes to launch a call (tens of
+    microseconds through a Python wrapper, more than a short kernel runs).
+    A burst whose enqueueing outlasts the spin times the host again."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    spin = getattr(torch.cuda, "_sleep", None)
+    if spin is not None:
+        spin(SPIN_CYCLES)
+    a.record()
+    for i in range(burst):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / burst
+
+
 def trace_device_ms(run_frame, frames: int = 5):
     """Device time per frame over ``frames`` calls of ``run_frame()`` (launch
     the frame's device work on the current stream, return the output

@@ -1,0 +1,288 @@
+"""Two or more trees of the kernel sources, timed beside each other on one
+card in one process.
+
+    python -m compeg_tpu_torch.tools.compare_csrc parent=checkout_tmp/parent_csrc
+    python -m compeg_tpu_torch.tools.compare_csrc a=dir_a b=dir_b --no-change
+
+Each ``name=dir`` is a directory that holds a whole ``csrc`` (every ``.cu``
+and ``.cuh``, with the package's C entry points), such as the parent
+commit's, unpacked with ``git archive`` into a directory that git ignores.
+The package's own ``compeg_tpu_torch/csrc`` is added last under the name
+``change``. Every tree is built with the package's nvcc flags into
+``build/compeg_tpu_torch/`` and bound with ctypes; the package's wrappers
+are not used, so a tree is driven through its C entry points with the
+package's launch parameters (a tree that knows fewer parameter fields reads
+the ones it knows: new fields are only ever added at the end).
+
+On ``bench_assets/bench4k.jpg`` and the small streams of
+``testdata/smoke.npz`` every fused kernel (K2, K2x, K3 integer and float,
+K2s at k = 1, 2, 4), K1 and the relayout copy and spread of every tree must
+give the first tree's output bit for bit; a difference is reported with its
+size and makes the exit code 1. Then the times: CUDA events around a burst
+of ``BURST`` launches enqueued while the card still spins in a kernel
+before them (``profiling.burst_ms``: the card, not the host's launch path,
+sets the time), divided by their number, the trees taking turns (forward in even
+rounds, backward in odd ones), the median of ``--reps`` rounds per tree; K2,
+K2x and K3 also on a batch of ``FRAMES`` copies of the frame, per frame;
+the copy of a 4K raster's 33.5 MB, alternating between two inputs so that no
+launch finds its input in the L2 cache, beside ``torch.clone()`` in the same
+rounds. ``--ptxas``
+prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu (registers,
+spills) first. One JSON object with every median is printed and, with
+``--out``, written to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from typing import Callable, Dict, List
+
+import torch
+
+from .. import testdata
+from ..ops import _build
+from ..ops import fused as F
+from ..ops import idct as D
+from ..ops import relayout as R
+from ..pipeline import Decoder
+from ..profiling import burst_ms
+from .exp_relayout import BENCH
+
+SCALES = (1, 2, 4)
+BURST = 8  # launches between two events
+FRAMES = 64  # copies of the 4K frame in the batch
+
+
+def ptxas_report(csrc: str) -> str:
+    """The resource lines of ``nvcc -Xptxas -v`` for ``csrc``'s decode.cu."""
+    res = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         os.devnull, os.path.join(csrc, "decode.cu")],
+        capture_output=True, text=True)
+    keep = [ln.strip() for ln in res.stderr.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    return "\n".join(keep) if res.returncode == 0 else res.stderr
+
+
+def frame_calls(data: bytes, device) -> Dict[str, Callable]:
+    """For one JPEG, ``name -> fn(lib)`` that launches that kernel of
+    library ``lib`` and returns its outputs (a tuple of tensors)."""
+    dec = Decoder(device=device)
+    pf = dec.prepare(data)
+    rows = dec.upload(pf)
+    g, nseg, tables = pf.geom, pf.nseg, pf.tables
+    qsl = D.qz_by_slot_array(pf.image)
+    xdec = Decoder(device=device, exact_idct=True)
+    qz = xdec.prepare(data).op
+    lq = {k: D.scaled_operators(qsl, k, device=device) for k in SCALES}
+
+    def rgba(entry, op, geom=g, blk=8, src=rows):
+        def call(lib, i=0):
+            out = torch.empty(F._batched((geom.height, geom.width), src),
+                              dtype=torch.int32, device=device)
+            _build.launch(entry, src, tables.packed, op, out, lib=lib,
+                          params=F._params(src, nseg, tables, geom, blk))
+            return (out,)
+        return call
+
+    def planes(entry, op, src=rows):
+        def call(lib, i=0):
+            outs = [torch.empty(F._batched(s, src), dtype=torch.uint8,
+                                device=device) for s in F.plane_shapes(g)]
+            _build.launch(entry, src, tables.packed, op,
+                          *(outs + [None] * (3 - len(outs))), lib=lib,
+                          params=F._params(src, nseg, tables, g))
+            return tuple(outs)
+        return call
+
+    def k1(lib, i=0):
+        out = torch.empty((nseg, g.ri, len(g.du_to_comp), 64),
+                          dtype=torch.int32, device=device)
+        _build.launch("compeg_entropy_decode", rows, tables.packed, out,
+                      lib=lib, params=F._params(rows, nseg, tables, g))
+        return (out,)
+
+    calls = {
+        "K2": rgba("compeg_fused_decode", pf.op),
+        "K2x": rgba("compeg_fused_decode_exact", qz),
+        "K3 int": planes("compeg_fused_decode_planes_exact", qz),
+        "K3 float": planes("compeg_fused_decode_planes", pf.op),
+        "K1": k1,
+    }
+    for k in SCALES:
+        calls[f"K2s k={k}"] = rgba("compeg_fused_decode_scaled", lq[k],
+                                   F.scaled_geometry(g, k), k)
+    calls["_batch"] = lambda b: {
+        "K2": rgba("compeg_fused_decode", pf.op, src=_stack(rows, b)),
+        "K2x": rgba("compeg_fused_decode_exact", qz, src=_stack(rows, b)),
+        "K3 int": planes("compeg_fused_decode_planes_exact", qz,
+                         src=_stack(rows, b)),
+    }
+    return calls
+
+
+def _stack(rows: torch.Tensor, b: int) -> torch.Tensor:
+    return rows.unsqueeze(0).expand(b, *rows.shape).contiguous()
+
+
+def relayout_calls(device) -> Dict[str, Callable]:
+    """The copy of a 4K raster (aligned, and one word off), a strided copy
+    and the 16-fold spread and merge, through each tree's P4 entry point."""
+    bigs = [torch.randint(0, 1 << 24, (2160 * 3840 + 4,), dtype=torch.int32,
+                          device=device) for _ in range(2)]
+    grid = [b[:2160 * 3840].reshape(2160, 3840) for b in bigs]
+    small = torch.randint(0, 1 << 24, (2, 2160, 240), dtype=torch.int32,
+                          device=device)
+
+    def p4(a2, b2, x):
+        def call(lib, i=0):
+            a, b = a2[i % 2], b2[i % 2]
+            n, l = a.shape
+            out = torch.empty((n, l * x), dtype=torch.int32, device=device)
+            route = R.spread_merge_route(a.data_ptr(), out.data_ptr(), n, l,
+                                         x, a.stride(0))
+            _build.launch("compeg_relayout_spread_merge", a, b, out, lib=lib,
+                          params=_build.RelayoutParams(
+                              n=n, l=l, x=x, in_stride=a.stride(0),
+                              vec=int(route == "vec")))
+            return (out,)
+        return call
+
+    off = [b[1:1 + 2160 * 3840].reshape(2160, 3840) for b in bigs]
+    cols = [g[:, :3836] for g in grid]
+    return {
+        "copy 33.5 MB": p4(grid, grid, 1),
+        "copy 33.5 MB, one word off": p4(off, off, 1),
+        "copy of strided rows": p4(cols, cols, 1),
+        "spread x16 to 33.5 MB": p4([small[0]] * 2, [small[0]] * 2, 16),
+        "merge x16 to 33.5 MB": p4([small[0]] * 2, [small[1]] * 2, 16),
+        "_clone": lambda lib, i=0: (grid[i % 2].clone(),),
+    }
+
+
+def time_in_turns(fns: List[Callable], reps: int,
+                  burst: int = 1) -> List[float]:
+    """Median CUDA-event ms per call of each ``fn(i)``, timed in bursts of
+    ``burst`` calls, the functions taking turns: forward in even rounds,
+    backward in odd ones."""
+    for fn in fns:
+        fn(0)
+        fn(1)
+    times = [[] for _ in fns]
+    for rep in range(reps):
+        order = range(len(fns)) if rep % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            times[i].append(burst_ms(fns[i], burst))
+    return [statistics.median(t) for t in times]
+
+
+def differences(got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) for g, w in
+               zip(got, want))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*", metavar="name=dir")
+    ap.add_argument("--no-change", action="store_true",
+                    help="leave the package's own csrc out")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kernels", choices=("all", "decode", "relayout"),
+                    default="all", help="which kernels to check and time")
+    ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--out", help="also write the result JSON to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_csrc: needs a CUDA card")
+        return 1
+    trees = [t.split("=", 1) for t in args.trees]
+    if not args.no_change:
+        trees.append(["change", _build.CSRC])
+    if len(trees) < 1:
+        ap.error("no tree to time")
+    device = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    libs = []
+    for name, csrc in trees:
+        if args.ptxas:
+            print(f"--- {name}: ptxas\n{ptxas_report(csrc)}", flush=True)
+        libs.append(_build.load(os.path.abspath(csrc)))
+        print(f"built {name} from {csrc}", flush=True)
+    names = [n for n, _ in trees]
+    bad = []
+
+    def check(label, calls):
+        want = None
+        for name, lib in zip(names, libs):
+            got = calls(lib)
+            torch.cuda.synchronize()
+            if want is None:
+                want = got
+            elif not all(torch.equal(a, b) for a, b in zip(got, want)):
+                bad.append(f"{label}: {name} differs from {names[0]} by up "
+                           f"to {differences(got, want)}")
+
+    calls4k, batch, rl, clone = {}, {}, {}, None
+    if args.kernels != "relayout":
+        vec = testdata.load()
+        for i, label in enumerate(vec["labels"]):
+            calls = frame_calls(vec[f"jpeg_{i}"].tobytes(), device)
+            for kname, call in calls.items():
+                if not kname.startswith("_"):
+                    check(f"{label} {kname}", call)
+        print(f"small streams: {len(vec['labels'])} compared", flush=True)
+        with open(BENCH, "rb") as f:
+            calls4k = frame_calls(f.read(), device)
+        batch = calls4k.pop("_batch")(FRAMES)
+    if args.kernels != "decode":
+        rl = relayout_calls(device)
+        clone = rl.pop("_clone")
+    for kname, call in {**calls4k, **rl}.items():
+        check(f"4K {kname}", call)
+    for kname, call in batch.items():
+        check(f"4K batch of {FRAMES} {kname}", call)
+
+    result = {"card": card, "trees": names, "reps": args.reps,
+              "burst": BURST, "ms": {}}
+
+    def timed(label, call, reps, per=1, burst=BURST, extra=()):
+        fns = [lambda i, lib=lib: call(lib, i) for lib in libs] + [
+            e for _, e in extra]
+        ms = [t / per for t in time_in_turns(fns, reps, burst)]
+        result["ms"][label] = dict(zip(names + [n for n, _ in extra], ms))
+        print(f"{label}: " + "  ".join(
+            f"{n} {t:.4f}" for n, t in result["ms"][label].items()),
+            flush=True)
+
+    for kname, call in calls4k.items():
+        timed(kname, call, args.reps)
+    for kname, call in batch.items():
+        timed(f"{kname} batched, per frame of {FRAMES}", call,
+              max(3, args.reps // 4), per=FRAMES, burst=1)
+    for kname, call in rl.items():
+        timed(kname, call, args.reps,
+              extra=[("torch.clone", lambda i: clone(None, i))]
+              if kname.startswith("copy 33.5 MB") else ())
+    result["differences"] = bad
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result["ms"]))
+    if bad:
+        print(f"{len(bad)} differences, the first: " + "; ".join(bad[:5]))
+        return 1
+    print(f"every tree gives {names[0]}'s output bit for bit")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,11 @@ it bit for bit. On a CUDA device each line then gives the kernel's
 CUDA-event time (median), the time of the one PyTorch call that computes the
 same function (``permute(...).contiguous()``, ``clone()``: the plain
 version), and the bound: bytes read once plus bytes written once over the
-card's 3.35 TB/s. Successive timed launches alternate between two copies of
+card's 3.35 TB/s. A timing is a burst of ``BURST`` launches between two
+events, enqueued while the card still spins in a kernel before them
+(``profiling.burst_ms``), divided by their number: one launch of these
+kernels takes the card less time than the host takes to launch it, so
+launches timed one by one would time the host. Successive launches alternate between two copies of
 the input, so that a launch does not find its input in the 50 MB L2.
 
 P2 also runs on the real thing, as tools/exp_swap_pallas.py does: the port's
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops import relayout as R
+from ..profiling import burst_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 S, L, X, RR = 8, 128, 16, 8  # sublanes, lanes, mw, mh of the probes
@@ -50,20 +55,15 @@ def _dev(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 
+BURST = 8  # launches between two events
+
+
 def cuda_ms(fn: Callable[[int], torch.Tensor], reps: int) -> float:
-    """Median CUDA-event time of ``fn(i)`` over ``reps`` launches."""
+    """Median CUDA-event time per launch of ``fn(i)`` over ``reps`` bursts
+    of ``BURST`` launches."""
     for i in range(2):
         fn(i)
-    times = []
-    for i in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn(i)
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return statistics.median(burst_ms(fn, BURST) for _ in range(reps))
 
 
 def probe(name: str, probe_id: str, kernel: Callable, plain: Callable,

@@ -165,6 +165,33 @@ def test_k2s_within_one_of_plain_and_golden(cuda, sampling, ri, k,
     assert np.abs(got - gold).max() <= 1
 
 
+@pytest.mark.parametrize("w", [36, 38, 40, 129])
+@pytest.mark.parametrize("sampling", ["422", "420", "411", "gray"])
+def test_rgba_store_at_whole_and_ragged_quads(cuda, sampling, w, test_image):
+    """Rasters whose rows are whole 16-byte quads (the vector store) and
+    ones that are not (word by word, the right edge checked): K2 and K2s
+    within 1 of their plain twins, K2x equal to its own and to golden."""
+    data, pf, rows = prepared(cuda, sampling, 1, test_image, h=19, w=w)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
+    got = counted("fused", F.fused_decode_rgba, *args)
+    want = F.fused_decode_rgba_reference(*args)
+    assert np.abs(as_rgb(got).astype(int) - as_rgb(want)).max() <= 1
+    assert ((got.cpu().numpy() >> 24) & 0xFF == 0xFF).all()
+    _, pfx, _ = prepared(cuda, sampling, 1, test_image, h=19, w=w,
+                         exact_idct=True)
+    args = (rows, pfx.nseg, pfx.tables, pfx.op, pfx.geom)
+    gotx = counted("fused_exact", F.fused_decode_rgba_exact, *args)
+    assert torch.equal(gotx, F.fused_decode_rgba_exact_reference(*args))
+    assert np.array_equal(as_rgb(gotx), golden.decode_rgb(data, idct="int"))
+    for k in (1, 2, 4):
+        lq_k = D.scaled_operators(D.qz_by_slot_array(pf.image), k, device=cuda)
+        args = (rows, pf.nseg, pf.tables, lq_k, pf.geom, k)
+        gots = as_rgb(counted("scaled", F.fused_decode_scaled, *args))
+        wants = as_rgb(F.fused_decode_scaled_reference(*args))
+        assert gots.shape == wants.shape
+        assert np.abs(gots.astype(int) - wants).max() <= 1
+
+
 def test_zigzag_table_mirrors_compeg_tables():
     """csrc/int_idct.cuh's kZigzag is compeg_tpu.tables.ZIGZAG."""
     path = os.path.join(_build.CSRC, "int_idct.cuh")
@@ -351,6 +378,35 @@ def test_relayout_transposes_at_ragged_sizes(cuda, x, l, n):
                        R.relayout_spread_merge_reference(a, b, x))
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("n,l", [(64, 256), (1, 4095), (33, 70), (3, 6),
+                                 (540, 3840)])
+def test_copy_and_spread_at_every_alignment(cuda, offset, n, l):
+    """The 16-byte and the word kernels, whichever the pointers and lengths
+    select, against torch's own copy and the plain spread and merge: inputs
+    that start 0 to 4 words off a 16-byte boundary, contiguous and with
+    strided rows, lengths that are and are not whole vectors."""
+    pad = 4
+    base = torch.randint(0, 1 << 24, (2 * n * (l + pad) + 8,),
+                         dtype=torch.int32, device=cuda)
+    flat = base[offset:offset + n * l].reshape(n, l)
+    strided = base[offset:offset + n * (l + pad)].reshape(n, l + pad)[:, :l]
+    rest = base[n * (l + pad) + 4:]
+    others = (rest[:n * l].reshape(n, l),
+              rest[:n * (l + pad)].reshape(n, l + pad)[:, :l])
+    for a, other in zip((flat, strided), others):
+        vec = R.spread_merge_route(a.data_ptr(), 0, n, l, 1, a.stride(0))
+        flat_rows = n == 1 or a.stride(0) == l
+        assert (vec == "vec") == (offset % 4 == 0 and (
+            (n * l) % 4 == 0 if flat_rows else l % 4 == 0))
+        got = counted("spread_merge", R.relayout_copy, a)
+        assert got.is_contiguous() and torch.equal(got, a)
+        for x in (2, 16):
+            assert torch.equal(
+                counted("spread_merge", R.relayout_spread_merge, a, other, x),
+                R.relayout_spread_merge_reference(a, other, x))
+
+
 @pytest.mark.parametrize("h,w", [(2160, 3840), (100, 2048), (65, 2049),
                                  (1, 1)])
 def test_swap_crop_kernel_equals_plain_at_partial_edges(cuda, h, w):
@@ -379,3 +435,18 @@ def test_trace_device_ms_times_the_decode_on_the_card(cuda, test_image):
         assert ms_ > 0 and count >= 0 and isinstance(name, str)
     print("trace_device_ms:", total, rows_[:3])
     profiling.hard_sync(dec.decode_prepared(pf))
+
+
+def test_burst_ms_times_the_card_not_the_host(cuda):
+    """Launches enqueued behind the spin kernel run back to back: a copy
+    of 33.5 MB reads well under the host's tens of microseconds per wrapper
+    call plus the kernel, and more than its bytes over the card's memory
+    rate."""
+    from compeg_tpu_torch import profiling
+
+    a = torch.randint(0, 1 << 24, (2160, 3840), dtype=torch.int32,
+                      device=cuda)
+    R.relayout_copy(a)
+    ms = min(profiling.burst_ms(lambda i: R.relayout_copy(a)) for _ in range(5))
+    assert 2 * a.numel() * 4 / 3.35e12 * 1e3 < ms < 0.1
+    print("burst_ms of the 4K copy:", ms)

@@ -128,3 +128,91 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         R.relayout_swap_crop(x.reshape(G, 64, -1), X, G * 64 + 1, 8)
     with pytest.raises(ValueError, match="share shape"):
         R.relayout_spread_merge(x[0, 0, 0], x[0, 0, 0, :4], X)
+
+
+# -- the copy's and the spread's choice of kernels, and views -----------------
+
+A = 0x7F0000000000  # a 512-byte aligned base, as the allocator hands out
+
+ROUTES = [
+    # a_ptr, out_ptr, n, l, x, in_stride, route
+    (A, A, 2160, 3840, 1, 3840, "vec"),        # the 4K raster
+    (A + 4, A, 2160, 3840, 1, 3840, "word"),   # input one word off
+    (A + 8, A, 2160, 3840, 1, 3840, "word"),
+    (A + 16, A, 2160, 3840, 1, 3840, "vec"),   # four words off
+    (A, A + 4, 2160, 3840, 1, 3840, "word"),   # output one word off
+    (A, A, 1, 4095, 1, 4095, "word"),          # no multiple of four words
+    (A, A, 3, 6, 1, 6, "word"),                # contiguous, 18 words
+    (A, A, 2, 6, 1, 6, "vec"),                 # contiguous, 12 words: one row
+    (A, A, 2160, 3836, 1, 3840, "vec"),        # strided rows of whole vectors
+    (A, A, 2160, 3838, 1, 3840, "word"),       # ... of ragged length
+    (A, A, 2160, 3836, 1, 3838, "word"),       # ... a ragged stride apart
+    (A + 4, A, 8, 128, 16, 128 * 16 * 8, "vec"),  # a spread reads words
+    (A + 4, A + 4, 8, 128, 16, 128, "word"),
+    (A, A, 8, 3, 2, 3, "vec"),                 # 48 words in one row
+    (A, A, 8, 3, 2, 5, "word"),                # rows of 6 words, strided
+    (A, A, 7, 2, 2, 9, "vec"),                 # rows of one vector each
+]
+
+
+@pytest.mark.parametrize("a_ptr,out_ptr,n,l,x,in_stride,route", ROUTES)
+def test_route_is_a_function_of_pointers_strides_and_length(
+        a_ptr, out_ptr, n, l, x, in_stride, route):
+    assert R.spread_merge_route(a_ptr, out_ptr, n, l, x, in_stride) == route
+
+
+def test_route_of_real_tensors():
+    base = torch.zeros(64 * 65 + 8, dtype=torch.int32)
+    base = base[(-base.data_ptr() // 4) % 4:]  # 16-byte aligned from here
+    assert base.data_ptr() % 16 == 0
+    out = base.data_ptr()
+
+    def route(a, x=1):
+        n, l = a.shape
+        return R.spread_merge_route(a.data_ptr(), out, n, l, x, a.stride(0))
+
+    grid = base[:64 * 64].reshape(64, 64)
+    assert route(grid) == "vec"
+    assert route(base[1:1 + 64 * 64].reshape(64, 64)) == "word"
+    assert route(grid[:, :60]) == "vec" and route(grid[:, :62]) == "word"
+    assert route(grid[:, 4:]) == "vec" and route(grid[:, 1:61]) == "word"
+    assert route(base[:64 * 65].reshape(64, 65)[:, :64]) == "word"
+    assert route(base[1:1 + 64 * 64].reshape(64, 64), x=4) == "vec"
+
+
+VIEWS = [
+    ("contiguous", lambda t: t),
+    ("one word off", lambda t: t.reshape(-1)[1:1 + 24 * 40].reshape(24, 40)),
+    ("column slice", lambda t: t[:, 4:36]),
+    ("ragged column slice", lambda t: t[:, 3:30]),
+    ("row slice", lambda t: t[5:17]),
+    ("every other row", lambda t: t[::2]),
+    ("one row", lambda t: t[7:8, 1:]),
+]
+
+
+@pytest.mark.parametrize("x", [1, 2, 16])
+@pytest.mark.parametrize("name,view", VIEWS)
+def test_copy_spread_and_merge_of_views_equal_numpy(name, view, x):
+    a_np, b_np = random_u32((25, 40), 1), random_u32((25, 40), 2)
+    a, b = view(t(a_np)), view(t(b_np))
+    an, bn = view(a_np), view(b_np)
+    assert a.stride(1) == 1
+    spread = np.repeat(an, x, axis=1)
+    assert np.array_equal(u(R.relayout_spread(a, x)), spread)
+    merged = np.repeat(bn, x, axis=1)
+    merged[:, ::x] = an
+    assert np.array_equal(u(R.relayout_spread_merge(a, b, x)), merged)
+    if x == 1:
+        got = R.relayout_copy(a)
+        assert np.array_equal(u(got), an) and got.is_contiguous()
+        assert got.data_ptr() != a.data_ptr()
+
+
+def test_copy_of_higher_rank_and_what_it_refuses():
+    x = random_u32((3, 4, 5, 8))
+    assert np.array_equal(u(R.relayout_copy(t(x))), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        R.relayout_copy(t(x)[:, :, ::2])
+    with pytest.raises(ValueError, match="X >= 1"):
+        R.relayout_spread(t(x)[0, 0], 0)
