@@ -8,20 +8,25 @@ checks the kernels against their plain PyTorch versions and against the
 golden decoder's answers on small streams of every supported sampling and on
 the 4K benchmark frame, drives each Decoder path with the launch counters
 zeroed (the default decode, the exact decode, decode_ycbcr, the fancy decode,
-the planes epilogue and decode_scaled) and checks that each went through its
-own kernel, checks that garbage entropy bits terminate in every kernel, and
-times the kernels against their plain versions. Then the batch and the
+the planes epilogue, decode_scaled and the staged decode of fused=False,
+which runs the entropy kernel K1 and torch ops) and checks that each went
+through its own kernel, checks that garbage entropy bits terminate in every
+kernel, and times the kernels against their plain versions, the staged
+path's stages and the torch epilogue of the planes paths. Then the batch and the
 stream: small batches of frames that differ, and 64 frames of 3840x2160
 4:2:2 (the benchmark frame with its restart segments rotated, so every frame
 is another picture) through BatchDecoder on K2, K2x and K3, one launch per
 batch, and through StreamDecoder in order, against golden's stored answers
 and the single-frame decode. Then the four relayout kernels: the probe tool
 compeg_tpu_torch/tools/exp_relayout.py at the probes' shapes and on the 4K
-decode, each kernel against its plain version, and the copy at aligned and
-misaligned pointers and ragged lengths, timed beside torch's clone(). Any
-failure exits non-zero. The default decode of the 4K frame must equal
-golden's byte for byte (its sha256), the small rasters must take both the
-16-byte and the word-wise store of the RGBA kernels, and a kernel's time is
+decode, each kernel against its plain version, and the copy and the
+interleave at aligned and misaligned pointers and ragged sizes, each on the
+kernel its route function names, timed beside torch's clone() and
+transpose(-1, -2).contiguous(). Any failure exits non-zero. The default
+decode of the 4K frame must equal golden's byte for byte (its sha256), the
+small rasters must take both the
+16-byte and the word-wise store of the RGBA kernels and the 16-byte, 8-byte
+and byte-wise store of the planes kernels, and a kernel's time is
 a burst of launches between two CUDA events, enqueued behind a spinning
 kernel so that they run back to back, divided by their number. The
 last three lines are the kernels JSON, the card's nvidia-smi
@@ -123,6 +128,7 @@ def main() -> int:
     from compeg_tpu_torch.ops import entropy as E
     from compeg_tpu_torch.ops import fused as F
     from compeg_tpu_torch.ops import idct as D
+    from compeg_tpu_torch.ops import int_idct as I
     from compeg_tpu_torch.ops import relayout as R
     from compeg_tpu_torch.pipeline import Decoder
     from compeg_tpu_torch.tools import exp_relayout
@@ -205,16 +211,53 @@ def main() -> int:
         return [(-(-g.height * v // max_v), -(-g.width * h // max_h))
                 for h, v in g.samplings]
 
+    # rasters by the store their planes took (ops/fused.plane_store_route)
+    plane_rasters = {"16-byte": set(), "8-byte": set(), "byte": set()}
+
+    def offset_planes(like, off):
+        """Planes shaped like ``like`` that start ``off`` bytes past a
+        16-byte boundary."""
+        out = []
+        for p in like:
+            buf = torch.zeros(p.numel() + 32, dtype=torch.uint8,
+                              device=p.device)
+            at = (-buf.data_ptr()) % 16 + off
+            out.append(buf[at:at + p.numel()].reshape(p.shape))
+        return out
+
     def modes(pf, rows):
         """K2x, K3 (integer) and the fancy epilogue of one exact frame, each
         with its plain twin: (k2x, plain k2x, k3 planes, plain planes, fancy
-        over K3, fancy over the plain planes)."""
+        over K3, fancy over the plain planes). K3 also writes into planes
+        off a 16-byte boundary, with the integer and the float IDCT, and
+        must give the same planes; K3 float within 1 of its plain twin."""
         g = pf.geom
+        lq_float = D.idct_operators(D.qz_by_slot_array(pf.image),
+                                    device=rows.device)
         args = (rows, pf.nseg, pf.tables, pf.op, g)
         k2x = F.fused_decode_rgba_exact(*args)
         k2x_plain = F.fused_decode_rgba_exact_reference(*args)
         k3 = F.fused_decode_planes(*args, exact=True)
         k3_plain = F.fused_decode_planes_reference(*args, exact=True)
+        # The same planes from bases 0, 8 and 3 bytes off a 16-byte
+        # boundary (the 16-byte, the 8-byte and the byte-wise store), with
+        # the integer and the float IDCT.
+        fargs = (rows, pf.nseg, pf.tables, lq_float, g)
+        k3f = F.fused_decode_planes(*fargs)
+        k3f_err = max(int((p.int() - q.int()).abs().max()) for p, q in zip(
+            k3f, F.fused_decode_planes_reference(*fargs)))
+        require(k3f_err <= 1, f"K3 float is {k3f_err} from its plain twin")
+        for off in (0, 8, 3):
+            out = offset_planes(k3, off)
+            got = F.fused_decode_planes(*args, exact=True, out=out)
+            gotf = F.fused_decode_planes(*fargs, out=offset_planes(k3, off))
+            require(all(torch.equal(p, q) for p, q in zip(got, k3))
+                    and all(torch.equal(p, q) for p, q in zip(gotf, k3f)),
+                    f"K3 into planes {off} bytes off a 16-byte boundary "
+                    "differs from K3 into planes of its own")
+            for p, (h, _) in zip(out, g.samplings):
+                plane_rasters[F.plane_store_route(p.data_ptr(), h)].add(
+                    f"{g.height}x{g.width} ri={g.ri}")
         fancy = [C.finalize_planes(p, g.samplings, g.width, g.height,
                                    fancy=True, rgb=g.rgb)
                  for p in (k3, k3_plain)]
@@ -223,6 +266,7 @@ def main() -> int:
     # ---- (c) small streams ---------------------------------------------------
     vec = testdata.load()
     stores = {"16-byte": [], "word-wise": []}  # rasters by the RGBA store
+    staged_err = 0
     for i, label in enumerate(vec["labels"]):
         data = vec[f"jpeg_{i}"].tobytes()
         retained = int(vec["retained"][i])
@@ -276,6 +320,34 @@ def main() -> int:
             worst = max(worst, pixel_stats(got, want)[0], pixel_stats(
                 got, rgb(F.fused_decode_scaled_reference(*args)))[0])
         require(worst <= 1, f"{label}: K2s outside +-1 ({worst})")
+        # The staged tier, Decoder(fused=False): K1 and torch ops. Exact and
+        # fancy + exact against golden's stored answers, the float decodes
+        # against golden and the fused decodes.
+        knobs = {"retained_coefficients": retained, "fused": False}
+        st_float = Decoder(**knobs).decode(data)
+        st_exact = Decoder(exact_idct=True, **knobs).decode(data)
+        st_fancy = Decoder(fancy_upsampling=True, **knobs).decode(data)
+        st_fancy_x = Decoder(fancy_upsampling=True, exact_idct=True,
+                             **knobs).decode(data)
+        fused_fancy = Decoder(retained_coefficients=retained,
+                              fancy_upsampling=True).decode(data)
+        st_err = (pixel_stats(st_float, vec[f"rgb_{i}"])[0],
+                  pixel_stats(st_float, k2_rgb)[0],
+                  pixel_stats(st_fancy, fused_fancy)[0])
+        require(np.array_equal(st_exact, vec[f"rgbi_{i}"])
+                and np.array_equal(st_fancy_x, vec[f"fancy_{i}"])
+                and np.array_equal(st_fancy_x, rgb(fancy)),
+                f"{label}: the staged exact or fancy + exact decode differs "
+                "from golden's stored answer")
+        require(st_err[0] <= 1 and st_err[1] <= 1 and st_err[2] <= 2,
+                f"{label}: the staged float decode is {st_err} from golden, "
+                "the fused decode and the fused fancy decode")
+        staged_err = max(staged_err, st_err[0])
+        log(f"(c) {label}: staged (fused=False) exact == golden integer RGB, "
+            f"fancy + exact == the JAX colour functions == fancy over K3; "
+            f"float max {st_err[0]} from golden, {st_err[1]} from K2, fancy "
+            f"max {st_err[2]} from the fused fancy decode (tolerance: exact; "
+            f"max 1; fancy max 2, one sample step through the colour matrix)")
         log(f"(c) {label}: K2x == golden integer RGB == plain K2x; K3 == "
             f"golden integer planes == plain K3; fancy == plain == JAX "
             f"colour functions; K2s k=1,2,4 max {worst} from golden and plain "
@@ -287,6 +359,13 @@ def main() -> int:
     require("17x37" in stores["word-wise"] and any(
         "(k=" in r for r in stores["word-wise"]) and "24x40" in
         stores["16-byte"], f"the small streams miss a store: {stores}")
+
+    for kind, seen in plane_rasters.items():
+        log(f"(c) rasters whose planes took the {kind} store: {sorted(seen)}")
+    for raster in ("17x37 ri=1", "18x38 ri=1", "40x72 ri=3", "16x48 ri=5"):
+        require(all(raster in plane_rasters[k] for k in ("8-byte", "byte"))
+                and (raster in plane_rasters["16-byte"]),
+                f"{raster} did not take every plane store: {plane_rasters}")
 
     # The ZRL stream under the compat semantics, and random int16-range
     # blocks whose integer IDCT wraps int32.
@@ -416,6 +495,31 @@ def main() -> int:
                 f"4K: scaled k={k} outside +-1")
         scaled_err = max(scaled_err, vs_plain_k[0])
 
+    # The staged tier at 4K: K1 once and no fused kernel; the exact decode
+    # golden's integer RGB, the float decode inside the envelope.
+    staged_x = Decoder(fused=False, exact_idct=True)
+    got, counts = drive(lambda: staged_x.decode(data4k))
+    launches["entropy"] = only(counts, "entropy",
+                               "Decoder(fused=False, exact_idct=True).decode")
+    require(launches["entropy"] == 1, f"the staged decode launched K1 "
+            f"{launches['entropy']} times")
+    require(testdata.digest(got) == str(vec["bench4k_rgbi_sha256"]),
+            "4K: the staged exact decode is not golden's integer RGB (sha256)")
+    staged_dec = Decoder(fused=False)
+    got, counts = drive(lambda: staged_dec.decode(data4k))
+    only(counts, "entropy", "Decoder(fused=False).decode")
+    st4k = {"staged decode() vs golden rows": pixel_stats(got[rows],
+                                                          golden_rows),
+            "staged decode() vs decode()": pixel_stats(got, main_rgb)}
+    for name, (mx, frac) in st4k.items():
+        log(f"(d) {name}: max {mx}, frac>1 {frac:.3g}")
+    require(all(mx <= 2 and frac <= 1e-5 for mx, frac in st4k.values()),
+            "4K: the staged float decode is outside the PARITY.md envelope")
+    staged_err = max(staged_err, st4k["staged decode() vs golden rows"][0])
+    log("(d) Decoder(fused=False, exact_idct=True).decode(bench4k) "
+        "bit-identical to golden.decode_rgb(idct='int') (sha256): one launch "
+        "of K1, no fused kernel; the float staged decode inside the envelope")
+
     # ---- (e) garbage entropy bits terminate ---------------------------------
     img = pf.image
     off = img.scan_offset
@@ -493,6 +597,38 @@ def main() -> int:
             f"{plain[name]:.4f} ms (medians of {REPS} CUDA-event timings "
             f"of {BURST} launches each, and of {PLAIN_REPS} single calls) on "
             f"{card}")
+    # The staged path's stages after K1, and the torch epilogue of K3's
+    # paths (ops/color.finalize_planes over K3's planes, nearest and fancy):
+    # CUDA events around one call of each, which is several torch kernels
+    # and the host's gaps between them.
+    coeffs4k = E.entropy_decode(*base, g.ri, g.total_mcus, g.du_to_comp)
+    pix4k = D.idct_pixels(coeffs4k, pf.op)
+    stage_ms = {
+        "idct_pixels (float, torch)": cuda_ms(
+            lambda: D.idct_pixels(coeffs4k, pf.op), burst=1),
+        "idct_pixels_int (torch)": cuda_ms(
+            lambda: I.idct_pixels_int(coeffs4k, qz), reps=PLAIN_REPS,
+            burst=1),
+        "component_planes": cuda_ms(
+            lambda: C.component_planes(pix4k, g), burst=1),
+    }
+    epilogue_ms = {
+        name: cuda_ms(lambda fancy=fancy: C.finalize_planes(
+            k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb),
+            burst=1)
+        for name, fancy in (("nearest", False), ("fancy", True))}
+    rgba4k = C.finalize_planes(k3, g.samplings, g.width, g.height, rgb=g.rgb)
+    stage_ms["rgba_to_rgb"] = cuda_ms(lambda: F.rgba_to_rgb(rgba4k), burst=1)
+    del coeffs4k, pix4k, rgba4k
+    log(f"(f) the staged path after K1 ({ms['K1']:.4f} ms) at 4K: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
+        + f", finalize_planes as below (medians of {REPS} single calls, "
+        f"CUDA events; the integer IDCT {PLAIN_REPS}) on {card}")
+    log(f"(f) the torch epilogue of K3's paths at 4K, finalize_planes over "
+        f"K3's planes: nearest {epilogue_ms['nearest']:.4f} ms, fancy "
+        f"{epilogue_ms['fancy']:.4f} ms beside K3 integer "
+        f"{ms['K3 int']:.4f} ms, K3 float {ms['K3 float']:.4f} ms (medians "
+        f"of {REPS} single calls, CUDA events) on {card}")
     # Device time of one decode_prepared (upload, kernel and the gaps), and
     # what torch.profiler sees of it.
     trace_ms, trace_rows = profiling.trace_device_ms(
@@ -510,6 +646,10 @@ def main() -> int:
         "exact decode_ycbcr()": wall_ms(lambda: exact_dec.decode_ycbcr(data4k)),
         "fancy exact decode()": wall_ms(lambda: fancy_dec.decode(data4k)),
         "planes_epilogue decode()": wall_ms(lambda: pe_dec.decode(data4k)),
+        "staged decode() (fused=False)": wall_ms(
+            lambda: staged_dec.decode(data4k)),
+        "staged exact decode() (fused=False)": wall_ms(
+            lambda: staged_x.decode(data4k)),
     }
     for k in SCALES:
         walls[f"decode_scaled(k={k})"] = wall_ms(
@@ -548,6 +688,29 @@ def main() -> int:
         log(f"(g) batch of {nframes}, {label}: K2 within 1 of golden, K2x == "
             f"golden integer RGB, fancy over K3 == the JAX colour functions, "
             f"frame by frame, one launch each")
+
+    # The staged batch: every frame its own single-frame staged decode and
+    # golden's integer RGB, a K1 launch per frame and no fused kernel.
+    staged_batch_launches = {"entropy": 0}
+    for c, label in enumerate(vec["batch_labels"]):
+        frames = [vec[f"batch{c}_jpeg_{f}"].tobytes() for f in range(nframes)]
+        sbdec = BatchDecoder(fused=False, exact_idct=True)
+        got, counts = drive(lambda: sbdec.decode(frames))
+        require(counts["entropy"] == nframes
+                and sum(counts.values()) == nframes,
+                f"staged batch {label}: took {counts}, not a K1 launch a "
+                "frame")
+        staged_batch_launches["entropy"] += counts["entropy"]
+        single = Decoder(fused=False, exact_idct=True)
+        for f in range(nframes):
+            require(np.array_equal(got[f], single.decode(frames[f]))
+                    and np.array_equal(got[f], vec[f"batch{c}_rgbi_{f}"]),
+                    f"staged batch {label}: frame {f} is not its "
+                    "single-frame decode or golden's integer RGB")
+    log(f"(g) BatchDecoder(fused=False, exact_idct=True) on "
+        f"{len(vec['batch_labels'])} batches of {nframes}: every frame == "
+        f"its single-frame staged decode == golden integer RGB, "
+        f"{nframes} launches of K1 a batch")
 
     # ---- (h) 64 frames of 4K: BatchDecoder and StreamDecoder ------------------
     # Frame i is the benchmark frame with its restart segments rotated by i
@@ -761,6 +924,50 @@ def main() -> int:
             f"{copy_ms[name][1]:.4f} ms (medians of {REPS} bursts of "
             f"{exp_relayout.BURST}) on {card}")
     del bases
+    # The interleave on the kernel its route names: the 16-byte kernel at
+    # the probe's shape, the word kernel where vectors do not fit; each
+    # against its plain version, timed beside transpose(-1, -2).contiguous()
+    # on two alternating inputs.
+    n1 = 64 * 8 * 8
+    bases = [torch.randint(0, 1 << 24, (n1 * 16 * 130 + 8,),
+                           dtype=torch.int32, device="cuda") for _ in range(2)]
+    views = {
+        "aligned [4096, 16, 128]": (
+            lambda b: b[:n1 * 2048].reshape(n1, 16, 128), "vec"),
+        "one word off": (
+            lambda b: b[1:1 + n1 * 2048].reshape(n1, 16, 128), "word"),
+        "X = 3": (lambda b: b[:n1 * 384].reshape(n1, 3, 128), "word"),
+        "X = 64": (lambda b: b[:n1 * 2048].reshape(n1, 64, 32), "word"),
+        "L = 130": (lambda b: b[:n1 * 2080].reshape(n1, 16, 130), "word"),
+        "strided batch t[:, 0]": (
+            lambda b: b[:n1 * 2048].reshape(n1 // 8, 8, 16, 128)[:, 0],
+            "vec"),
+    }
+    interleave_ms = {}
+    for name, (view, want_route) in views.items():
+        a = view(bases[0])
+        got, il_counts = drive(lambda: R.relayout_interleave(a))
+        n_, x_, l_ = a.shape
+        route = R.interleave_route(a.data_ptr(), got.data_ptr(), n_, x_, l_,
+                                   a.stride(0))
+        err = int((got - R.relayout_interleave_reference(a)).abs().max())
+        rl_err["interleave"] = max(rl_err["interleave"], err)
+        require(route == want_route and il_counts["interleave"] == 1
+                and err == 0,
+                f"the interleave, {name}: route {route} (expected "
+                f"{want_route}), launches {il_counts['interleave']}, max "
+                f"|diff| {err}")
+        interleave_ms[name] = (
+            exp_relayout.cuda_ms(
+                lambda i: R.relayout_interleave(view(bases[i % 2])), REPS),
+            exp_relayout.cuda_ms(
+                lambda i: view(bases[i % 2]).transpose(-1, -2).contiguous(),
+                REPS))
+        log(f"(i) the interleave, {name} ({route} kernel, {a.numel() * 4} "
+            f"B): == its plain version; {interleave_ms[name][0]:.4f} ms, "
+            f"transpose(-1, -2).contiguous() {interleave_ms[name][1]:.4f} ms "
+            f"(medians of {REPS} bursts of {exp_relayout.BURST}) on {card}")
+    del bases
 
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
@@ -808,7 +1015,8 @@ def main() -> int:
                 "plain_ms": plain[ms_key], **bounds[ms_key],
                 "library_ms": None, **extra}
 
-    launch_sets = [launches, batch_launches, {"stream": stream_launches}]
+    launch_sets = [launches, batch_launches, {"stream": stream_launches},
+                   staged_batch_launches]
 
     def relayout_entry(name, key, replaces, probe_name, **extra):
         res = next(r for r in tool if r["probe"] == probe_name)
@@ -821,6 +1029,10 @@ def main() -> int:
 
     log(json.dumps({
         "kernels": [
+            entry("entropy_kernel (K1)", "compeg_tpu/ops/entropy.py:440",
+                  ("entropy",), k1_err, "K1",
+                  staged_path_max_abs_err=staged_err,
+                  staged_stage_ms=stage_ms),
             entry("fused_decode_kernel<kIdctFloat, kOutRgba> (K2)",
                   "compeg_tpu/ops/fused.py:419", ("fused", "stream"),
                   max(vs_plain[0], batch_err["K2"]), "K2",
@@ -834,7 +1046,8 @@ def main() -> int:
                   max(k3_err, batch_err["K3"]), "K3 int",
                   batched_ms_per_frame=batch_ms["K3 int"],
                   float_ms=ms["K3 float"], float_plain_ms=plain["K3 float"],
-                  float_bound_ms=bounds["K3 float"]["bound_ms"]),
+                  float_bound_ms=bounds["K3 float"]["bound_ms"],
+                  epilogue_ms=epilogue_ms),
             entry("fused_decode_kernel<kIdctScaled, kOutRgba> (K2s)",
                   "compeg_tpu/ops/fused.py:419", ("scaled",), scaled_err,
                   "K2s k=1", ms_by_k={k: ms[f"K2s k={k}"] for k in SCALES},
@@ -843,7 +1056,8 @@ def main() -> int:
                                  for k in SCALES}),
             relayout_entry("relayout_interleave_kernel (P1)", "interleave",
                            "tools/exp_interleave.py:135",
-                           "P1 interleave + row stack"),
+                           "P1 interleave + row stack",
+                           ms_and_transpose_ms=interleave_ms),
             relayout_entry("relayout_swap_crop_kernel (P2)", "swap_crop",
                            "tools/exp_swap_pallas.py:51", "P2 swap + crop"),
             relayout_entry("relayout_stack_kernel (P3)", "stack",
@@ -852,11 +1066,6 @@ def main() -> int:
                            "spread_merge", "tools/exp_mosaic_bisect.py:23",
                            "P1 copy floor",
                            copy_ms_and_clone_ms=copy_ms),
-        ],
-        # Ported, but on no Decoder path (the staged tier is not ported).
-        "off_path_kernels": [
-            entry("entropy_kernel (K1)", "compeg_tpu/ops/entropy.py:440",
-                  ("entropy",), k1_err, "K1"),
         ],
     }))
     leaked = [m for m in sys.modules

@@ -22,6 +22,11 @@ least ``depth + 1``. ``decode_iter_rgb`` reads back through pinned buffers
 on a third stream, a few frames behind the decode, and worker threads move
 each frame from its pinned buffer into the array the caller gets.
 
+``BatchDecoder(fused=False)`` is the staged tier
+(:func:`compeg_tpu_torch.pipeline.decode_frame_device`): still one upload,
+then the batch's frames one by one, a K1 launch and the torch stages each,
+to ``[B, H, W, 3]`` u8.
+
 On a CPU device (the tests) the same code runs without streams, events or
 pinned memory, on the kernels' plain versions.
 """
@@ -38,8 +43,7 @@ import numpy as np
 import torch
 
 from .errors import CompegError, bail
-from .ops import fused as F
-from .pipeline import Decoder, PreparedFrame, row_capacity
+from .pipeline import Decoder, PreparedFrame, row_capacity, to_rgb_tensor
 from .profiling import stage_timer
 
 
@@ -79,9 +83,10 @@ class _Staging:
 
 
 class _Readback:
-    """Packed RGBA frames on the device -> ``[H, W, 3]`` u8 arrays on the
-    host. On a CUDA device the RGB bytes travel through pinned buffers on a
-    stream of their own, and a few worker threads wait for each copy and
+    """Frames on the device (packed RGBA, or the staged tier's ``[H, W,
+    3]`` u8) -> ``[H, W, 3]`` u8 arrays on the host. On a CUDA device the
+    RGB bytes travel through pinned buffers on a stream of their own, and a
+    few worker threads wait for each copy and
     move the frame out of its pinned buffer into the caller's array (numpy
     releases the GIL for the copy, and a fresh array's page faults spread
     over the threads), so a caller can have ``threads`` frames on their way
@@ -102,14 +107,14 @@ class _Readback:
         fut: Future
         if not self.cuda:
             fut = Future()
-            fut.set_result(self._copy_out(F.rgba_to_rgb(rgba).numpy(), out))
+            fut.set_result(self._copy_out(to_rgb_tensor(rgba).numpy(), out))
             return fut
         ready = torch.cuda.Event()
         ready.record()  # the decode, on the caller's stream
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(ready)
             rgba.record_stream(self.stream)
-            rgb = F.rgba_to_rgb(rgba)
+            rgb = to_rgb_tensor(rgba)
             buf = self._free.pop() if self._free else None
             if buf is None or buf.shape != rgb.shape:
                 buf = torch.empty(rgb.shape, dtype=torch.uint8,
@@ -153,11 +158,13 @@ class BatchDecoder:
     The knobs are the JAX class's, plus ``device``: ``exact_idct`` takes
     kernel K2x, ``fancy_upsampling`` kernel K3 and the per-frame epilogue of
     ``ops/color.py`` (each frame's planes are a slice of the batch's, so the
-    vertical filter never reaches a neighbouring frame), the default K2. The
-    staged tier (``fused=False``) is not ported. The JAX package falls back
-    to its staged tier for fancy upsampling on a geometry it cannot tile
-    (compeg_tpu/batch.py:284-290); the port has no tiling and fancy always
-    takes K3, so there is no such fall-back here.
+    vertical filter never reaches a neighbouring frame), the default K2.
+    ``fused=False`` takes the staged tier, frame by frame (K1 and torch ops,
+    ``[B, H, W, 3]`` u8 on the device), with ``exact_idct`` and
+    ``fancy_upsampling`` as the single-frame Decoder applies them. The JAX
+    package falls back to its staged tier for fancy upsampling on a geometry
+    it cannot tile (compeg_tpu/batch.py:284-290); the port has no tiling and
+    fancy always takes K3 when fused, so there is no such fall-back here.
     """
 
     def __init__(
@@ -169,15 +176,10 @@ class BatchDecoder:
         device="cuda",
         max_device_bytes: int = 8 << 30,
     ):
-        if not fused:
-            raise NotImplementedError(
-                "BatchDecoder(fused=False) is not ported to compeg_tpu_torch "
-                "yet (ROADMAP.md queue 1 item 7)"
-            )
         self._dec = Decoder(
             retained_coefficients, max_device_bytes=max_device_bytes,
             device=device, exact_idct=exact_idct,
-            fancy_upsampling=fancy_upsampling,
+            fancy_upsampling=fancy_upsampling, fused=fused,
         )
         self.device = self._dec.device
         self.retained = retained_coefficients
@@ -226,7 +228,8 @@ class BatchDecoder:
 
     def decode_prepared(self, pfs: Sequence[PreparedFrame]) -> torch.Tensor:
         """One upload, one launch: packed RGBA ``[B, H, W]`` int32 on the
-        device (asynchronous on a CUDA device). ``pfs`` is what
+        device (asynchronous on a CUDA device); the staged tier: one upload,
+        a K1 launch per frame, ``[B, H, W, 3]`` u8. ``pfs`` is what
         :meth:`prepare_batch` returned last: its rows lie in this decoder's
         staging buffer."""
         if len(pfs) != len(self._prepared) or not all(
@@ -240,7 +243,7 @@ class BatchDecoder:
         """Device batch output -> ``[B, H, W, 3]`` u8 (synchronizes). A few
         frames cross to the host while earlier ones are copied out of their
         pinned buffers."""
-        res = np.empty((*out.shape, 3), dtype=np.uint8)
+        res = np.empty((*out.shape[:3], 3), dtype=np.uint8)
         pending: deque = deque()
         for i in range(out.shape[0]):
             pending.append(self._readback.fetch(out[i], res[i]))

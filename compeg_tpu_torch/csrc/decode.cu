@@ -52,11 +52,11 @@
 //    whole instruction stream for a few lanes), so warp 0 decodes.
 //  * The tile: a block keeps its segments' coefficients in shared memory,
 //    so nothing but the words goes in and nothing but pixels comes out;
-//    every IDCT writes its pixels over the coefficients it read. The float
-//    modes keep 16-bit elements (struct Tile), which lets eight blocks share
-//    a multiprocessor where the 32-bit tile lets five; a segment's stride is
-//    odd in words, so that the 32 segments' words of one sample lie in 32
-//    banks.
+//    every IDCT writes its pixels over the coefficients it read. Its
+//    elements are 16 bits wide in every mode (struct Tile; the DC, which may
+//    wrap in 32 bits, lies beside it), which lets eight blocks share a
+//    multiprocessor where a 32-bit tile let five; a segment's stride is odd
+//    in words, so that the 32 segments' words of one sample lie in 32 banks.
 //  * Phase 2, float: zero coefficients are skipped, found with ballots
 //    and not by walking the 64 positions, and a lane takes eight pixels
 //    of a data unit, so a nonzero costs it two 16-byte operator loads and
@@ -68,14 +68,23 @@
 //    the plain sum bit for bit; it was not needed to get under the entropy
 //    phase's time.
 //  * Phase 2, integer: 8 threads per data unit, one column each and then
-//    one row each, exchanging through shared memory (the reference's own
-//    IDCT shape, SURVEY.md 3.4-3.5); about 80 integer operations per column
-//    or row and no operator loads. The scaled IDCT reads only the first 1,
-//    5 or 25 zigzag coefficients.
+//    one row each (the reference's own IDCT shape, SURVEY.md 3.4-3.5); about
+//    80 integer operations per column or row and no operator loads. The
+//    eight lanes exchange columns for rows in registers, by warp shuffles
+//    (transpose8), so the 32-bit values between the passes never touch the
+//    tile. The scaled IDCT reads only the first 1, 5 or 25 zigzag
+//    coefficients.
 //  * Phase 3, RGBA: the sample offsets of an MCU's pixels come from the
 //    host, a segment's place in the frame is worked out once per segment, a
 //    thread composes four neighbouring pixels and stores 16 bytes where the
-//    raster allows (composite_rgba). K3 still writes one byte per thread.
+//    raster allows (composite_rgba).
+//  * Phase 3, planes: a thread takes one sample row of one store unit (a
+//    data unit, or two that lie side by side in their plane) of one segment,
+//    packs its 8 or 16 samples and stores them at once; the 32 lanes of a
+//    warp take the 32 segments' same row, which with restart interval 1 are
+//    neighbouring MCUs, so a warp writes one run of a plane row. The units'
+//    places come from the host (p.unit_*, ops/fused.plane_offsets)
+//    (store_planes).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -117,27 +126,22 @@ struct SegmentPos {
 enum IdctMode { kIdctFloat, kIdctInt, kIdctScaled };
 enum OutMode { kOutRgba, kOutPlanes };
 
-// The tile's element. The float IDCTs keep AC coefficients in 16 bits (an
-// AC value has at most 15 magnitude bits) and the DC, whose predictor may
-// wrap in 32 bits on garbage input, in a word of its own beside the tile:
-// half the shared memory, so more blocks on a multiprocessor. The integer
-// IDCT transforms in place in 32 bits and keeps 32-bit elements.
+// The tile's element. AC coefficients take 16 bits (an AC value has at most
+// 15 magnitude bits) and the DC, whose predictor may wrap in 32 bits on
+// garbage input, lies in a word of its own beside the tile: half the shared
+// memory of a 32-bit tile, so more blocks on a multiprocessor. The tile only
+// ever holds raw coefficients and final pixels 0..255; the integer IDCT's
+// 32-bit values between its passes stay in registers.
 //
 // A block's threads and the blocks a multiprocessor is to hold (which caps
 // the registers) follow the tile: at 4 data units per MCU eight blocks of
-// the 16-bit tile fit, of four warps each, and five of the 32-bit tile, of
-// eight warps each.
+// the 16-bit tile fit, of four warps each, in every mode (the integer IDCT
+// at eight warps and five blocks read a third slower, PERF.md).
 template <int IDCT>
 struct Tile {
   using T = short;
   static constexpr int THREADS = 128;
   static constexpr int BLOCKS = 8;
-};
-template <>
-struct Tile<kIdctInt> {
-  using T = int;
-  static constexpr int THREADS = 256;
-  static constexpr int BLOCKS = 5;
 };
 
 // The fused kernels' outputs: the packed RGBA raster in [0], or one u8 plane
@@ -303,40 +307,82 @@ __device__ __forceinline__ void idct_scaled(short* coef, const int* dc,
   }
 }
 
-// Phase 2, integer: 8 threads per data unit, 16 data units per round. Thread
-// c dequantizes and transforms column c (natural position 8r + c reads
-// zigzag slot kZigzag[8r + c]), writes it back in natural order descaled by
-// CONST_BITS - PASS1_BITS, then transforms row c, descales by CONST_BITS +
-// PASS1_BITS + 3, adds 128 and clamps. Segments past their end transform
-// zeroed coefficients, which nothing reads, so every thread of a warp takes
-// every __syncwarp.
-__device__ __forceinline__ void idct_int(int* coef, const int* qz_s, const int* zz_s,
+// The 8 x 8 transposition between the integer IDCT's passes, in registers:
+// lane c of a data unit's eight lanes holds a[r] = M[r][c] (column c) and
+// leaves with a[k] = M[c][k] (row c). Three exchange stages, one per bit of
+// the index: at the stage with mask m a lane whose number has bit m clear
+// sends its register `hi` to lane ^ m and receives that lane's `lo` into
+// `hi`; a lane with bit m set sends `lo` and receives into `lo`. The
+// register indices are compile-time constants:
+//   transpose8 stage mask 4: (0,4) (1,5) (2,6) (3,7)
+//   transpose8 stage mask 2: (0,2) (1,3) (4,6) (5,7)
+//   transpose8 stage mask 1: (0,1) (2,3) (4,5) (6,7)
+// (tests/test_torch_plane_store.py follows this table in numpy). The masks
+// are below 8, so every exchange stays inside the data unit's eight lanes;
+// all 32 lanes of the warp must call it.
+template <int M>
+__device__ __forceinline__ void transpose8_stage(uint32_t a[8], bool set) {
+#pragma unroll
+  for (int lo = 0; lo < 8; ++lo) {
+    if (lo & M) continue;
+    const int hi = lo | M;
+    const uint32_t got = __shfl_xor_sync(0xFFFFFFFFu, set ? a[lo] : a[hi], M);
+    if (set)
+      a[lo] = got;
+    else
+      a[hi] = got;
+  }
+}
+
+__device__ __forceinline__ void transpose8(uint32_t a[8], int lane) {
+  transpose8_stage<4>(a, lane & 4);
+  transpose8_stage<2>(a, lane & 2);
+  transpose8_stage<1>(a, lane & 1);
+}
+
+// Phase 2, integer: 8 threads per data unit, 16 data units per round of a
+// 128-thread block, slot by slot like the float IDCT. Thread c dequantizes
+// and transforms column c (natural position 8r + c reads zigzag slot
+// kZigzag[8r + c], the DC from dc), descales it by CONST_BITS - PASS1_BITS,
+// exchanges it for row c (transpose8; uint32 throughout, so garbage wraps
+// like the reference's int32), transforms that, descales by CONST_BITS +
+// PASS1_BITS + 3, adds 128, clamps and writes the row's eight pixels over
+// the unit's coefficients. The exchange lies between the last read and the
+// first write of a unit, and what a lane sends depends on all it read.
+// Segments past their end transform zeroed coefficients, which nothing
+// reads, so every thread of a warp takes every shuffle.
+__device__ __forceinline__ void idct_int(short* coef, const int* dc,
+                                         const int* qz_s, const int* zz_s,
                                          const DecodeParams& p) {
   using namespace int_idct;
   const int c = threadIdx.x & 7;
+  const int stride = tile_stride(p.dus, 2);
   for (int u = threadIdx.x >> 3; u < K2_SEGS * p.dus; u += blockDim.x / 8) {
-    const int sl = u / p.dus, d = u - sl * p.dus;
-    int* blk = coef + sl * tile_stride(p.dus, 4) + d * 64;
+    const int d = u >> K2_SEG_BITS, sl = u & (K2_SEGS - 1);
+    short* blk = coef + sl * stride + d * 64;
     const int* q = qz_s + d * 64;
     uint32_t s[8], o[8];
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       const int z = zz_s[r * 8 + c];
-      s[r] = dequant(blk[z], q[z]);
+      s[r] = dequant(z == 0 ? dc[sl * p.dus + d] : (int)blk[z], q[z]);
     }
     idct8(s, o);
-    __syncwarp();  // every column is read before any is overwritten
 #pragma unroll
-    for (int r = 0; r < 8; ++r) blk[r * 8 + c] = descale(o[r], CONST_BITS - PASS1_BITS);
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] = (uint32_t)blk[c * 8 + k];
+    for (int r = 0; r < 8; ++r)
+      s[r] = (uint32_t)descale(o[r], CONST_BITS - PASS1_BITS);
+    transpose8(s, c);
     idct8(s, o);
+    int px[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int v = descale(o[k], CONST_BITS + PASS1_BITS + 3) + 128;
-      blk[c * 8 + k] = min(max(v, 0), 255);
+      px[k] = min(max(v, 0), 255);
     }
+    uint32_t* row = reinterpret_cast<uint32_t*>(blk + c * 8);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      row[k] = (uint32_t)px[2 * k] | ((uint32_t)px[2 * k + 1] << 16);
   }
 }
 
@@ -425,30 +471,69 @@ __device__ __forceinline__ void composite_rgba(const T* coef, uint32_t* out,
   }
 }
 
-// Phase 3, planes: every sample of the block's MCUs to its component plane,
-// row (my * v + k / h) * 8 + py, column (mx * h + k % h) * 8 + px for the
-// k-th data unit of a component sampled (h, v); 8 neighbouring threads write
-// 8 neighbouring bytes of one plane row.
-template <class T>
-__device__ __forceinline__ void store_planes(const T* coef, const Outputs& o,
+// Eight neighbouring samples 0..255 of the tile as eight bytes. A row of a
+// data unit starts on a word of the tile: strides and rows are even.
+__device__ __forceinline__ uint2 pack_row(const short* c) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(c);
+  return make_uint2(__byte_perm(w[0], w[1], 0x6420),
+                    __byte_perm(w[2], w[3], 0x6420));
+}
+
+__device__ __forceinline__ void store_row(uint8_t* dst, uint2 v) {
+  if ((reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+    *reinterpret_cast<uint2*>(dst) = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dst[j] = (uint8_t)(v.x >> (8 * j));
+      dst[4 + j] = (uint8_t)(v.y >> (8 * j));
+    }
+  }
+}
+
+// Phase 3, planes. The k-th data unit of a component sampled (h, v) lies at
+// row (my * v + k / h) * 8, column (mx * h + k % h) * 8 of its plane. The
+// host hands over the MCU's store units (p.plane_units of them,
+// ops/fused.plane_offsets): unit u is data unit unit_du[u], with the next
+// one to its right when unit_pair[u], at (unit_row[u], unit_col[u]) of the
+// MCU's footprint in a plane of plane_pitch bytes a row. A thread keeps its
+// segment (lane = segment, so its MCU's place is read once) and takes rows
+// of units: 8 samples, or 16 of a pair, packed and stored at once: 16 bytes
+// where the address is a multiple of 16, 8 where of 8, else byte by byte.
+// The planes are MCU-padded with pitches and offsets that are multiples of
+// 8 (16 for a pair), so the address is as aligned as the plane's base, and
+// no store passes a plane's edge. The odd tile stride keeps the 32 lanes'
+// reads in 32 banks.
+__device__ __forceinline__ void store_planes(const short* coef,
+                                             const Outputs& o,
                                              const DecodeParams& p,
                                              const SegmentPos& pos) {
-  const int per_mcu = p.dus * 64;
-  for (int i = threadIdx.x; i < K2_SEGS * per_mcu; i += blockDim.x) {
-    const int sl = i / per_mcu;
-    const int my = pos.my[sl], mx = pos.mx[sl];
-    if (my < 0) continue;
-    const int w = i - sl * per_mcu;
-    const int d = w >> 6;
-    const int pix = w & 63;
+  const int sl = threadIdx.x & (K2_SEGS - 1);
+  const int my = pos.my[sl], mx = pos.mx[sl];
+  if (my < 0) return;
+  const short* px = coef + sl * tile_stride(p.dus, 2);
+  const int step = blockDim.x >> K2_SEG_BITS;
+  for (int t = threadIdx.x >> K2_SEG_BITS; t < p.plane_units * 8; t += step) {
+    const int u = t >> 3, py = t & 7;
+    const int d = p.unit_du[u];
     const int comp = p.du_to_comp[d];
-    const int h = p.comp_h[comp], v = p.comp_v[comp];
-    const int k = d - p.comp_slot[comp];
-    const int row = (my * v + k / h) * 8 + (pix >> 3);
-    const int col = (mx * h + k % h) * 8 + (pix & 7);
-    uint8_t* plane = static_cast<uint8_t*>(o.ptr[comp]);
-    plane[(size_t)row * (p.width_mcus * 8 * h) + col] =
-        (uint8_t)coef[sl * tile_stride(p.dus, sizeof(T)) + w];
+    const int row = my * p.comp_v[comp] * 8 + p.unit_row[u] + py;
+    const int col = mx * p.comp_h[comp] * 8 + p.unit_col[u];
+    uint8_t* dst = static_cast<uint8_t*>(o.ptr[comp]) +
+                   (size_t)row * p.plane_pitch[comp] + col;
+    const short* c = px + d * 64 + py * 8;
+    const uint2 a = pack_row(c);
+    if (p.unit_pair[u]) {
+      const uint2 b = pack_row(c + 64);
+      if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(a.x, a.y, b.x, b.y);
+      } else {
+        store_row(dst, a);
+        store_row(dst + 8, b);
+      }
+    } else {
+      store_row(dst, a);
+    }
   }
 }
 
@@ -461,11 +546,11 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   using T = typename Tile<IDCT>::T;
   int* tab = smem;
   // [K2_SEGS][tile_stride]: a segment's [dus][64] coefficients, its pixels
-  // after the IDCT; with 16-bit elements the DC values lie in dc_s.
+  // after the IDCT; the DC values lie in dc_s.
   T* coef = reinterpret_cast<T*>(smem + MAX_TABLE_INTS);
   const int stride = tile_stride(p.dus, sizeof(T));
   const int tile_words = K2_SEGS * stride * (int)sizeof(T) / 4;
-  __shared__ int dc_s[sizeof(T) == 2 ? K2_SEGS * 6 : 1];
+  __shared__ int dc_s[K2_SEGS * 6];
   // Integer mode: the quantizers [dus][64] and the zigzag table.
   __shared__ int qz_s[IDCT == kIdctInt ? 6 * 64 : 1];
   __shared__ int zz_s[IDCT == kIdctInt ? 64 : 1];
@@ -538,7 +623,7 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
       T* c = coef + slot * stride;
       int* dc = dc_s + slot * p.dus;
       decode_mcu(br, dp, tab, p, [&](int d, int z, int v) {
-        if (sizeof(T) == 2 && z == 0)
+        if (z == 0)
           dc[d] = v;
         else
           c[d * 64 + z] = (T)v;
@@ -548,7 +633,7 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
 
     // ---- phase 2: dequant + IDCT, pixels over the coefficients -----------
     if constexpr (IDCT == kIdctInt) {
-      idct_int(coef, qz_s, zz_s, p);
+      idct_int(coef, dc_s, qz_s, zz_s, p);
     } else if constexpr (IDCT == kIdctScaled) {
       idct_scaled(coef, dc_s, static_cast<const float*>(op), p, pos);
     } else {

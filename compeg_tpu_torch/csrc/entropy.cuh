@@ -57,6 +57,16 @@ struct DecodeParams {
   int mcu_h;
   int row_off[16];
   int col_off[32];
+  // The planes kernels' store units, from ops/fused.plane_offsets: unit u of
+  // an MCU is data unit unit_du[u], together with the next one to its right
+  // when unit_pair[u], at sample (unit_row[u], unit_col[u]) of the MCU's
+  // footprint in its component's plane.
+  int plane_units;     // store units per MCU (1..6)
+  int unit_du[6];
+  int unit_pair[6];
+  int unit_row[6];
+  int unit_col[6];
+  int plane_pitch[3];  // bytes per row of each component's plane
 };
 
 // One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:

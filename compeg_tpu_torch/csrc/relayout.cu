@@ -33,7 +33,14 @@
 // What bounds them on the H100: bytes. Each kernel reads every input word
 // once and writes every output word once (67 MB for the 4K raster's 33.5 MB).
 // What the design does about it: both sides of every copy are coalesced.
-// The two transposes go through a 32 x 33 padded shared-memory tile: a warp
+// The interleave's tile follows X: for X = 4, 8, 16 or 32 a thread takes a
+// block of 4 x by 4 l, four 16-byte loads along l that are all in flight
+// before its first store, and writes the four transposed 16-byte vectors;
+// the lanes that share an l lie side by side, so a warp reads runs of 128
+// bytes and more and writes runs of 4 * X bytes, whole sectors on both
+// sides, with no shared memory and no barrier
+// (relayout_interleave_vec_kernel). The swap, and the interleave where
+// vectors do not fit, go through a 32 x 33 padded shared-memory tile: a warp
 // reads 32 consecutive l of one x, and the block writes the tile's output
 // range in memory order (runs of min(X, 32) words), the padding keeping the
 // transposed shared-memory reads free of bank conflicts. The stack moves
@@ -42,9 +49,9 @@
 // store, from a grid sized to the card, and the spread and merge write
 // 16-byte vectors; all three index in 32 bits when the sizes fit and divide
 // only where rows are strided or X is no power of two. The word-per-thread
-// kernel remains for pointers and lengths that vectors do not fit; the
+// kernels remain for pointers and lengths that vectors do not fit; the
 // wrapper picks by pointers, strides and lengths
-// (ops/relayout.spread_merge_route).
+// (ops/relayout.spread_merge_route, interleave_route).
 
 #include <cuda_runtime.h>
 
@@ -61,7 +68,8 @@ struct RelayoutParams {
   long long w;          // swap_crop: output columns kept (the row pitch)
   long long sr;         // stack: S * R rows that change places with x
   long long g;          // stack: groups
-  long long vec;        // spread_merge: 16-byte kernels (the wrapper's choice)
+  long long vec;        // spread_merge, interleave: the 16-byte kernels (the
+                        // wrapper's choice)
 };
 
 namespace {
@@ -102,6 +110,40 @@ relayout_interleave_kernel(const uint32_t* __restrict__ in,
   uint32_t* dst = out + n * (size_t)X * L;
   transpose_tile(in + n * (size_t)p.in_stride, X, L,
                  [&](int l, int x) { return dst + (size_t)l * X + x; });
+}
+
+// The interleave in 16-byte vectors, for X in {4, 8, 16, 32}, L % 4 == 0 and
+// 16-byte aligned matrices (ops/relayout.interleave_route vouches for it).
+// A thread owns the 4 x 4 block (x4 .. x4 + 3, l4 .. l4 + 3) of one matrix:
+// it loads the four vectors in[x4 + i][l4 .. l4 + 3], all before the first
+// store, and stores the four vectors out[l4 + k][x4 .. x4 + 3], whose words
+// are the k-th words of the loaded ones. Threads are numbered with the X / 4
+// blocks of one l4 side by side (lxq = log2(X / 4)), then along l, then
+// over the matrices.
+template <class Idx>
+__global__ void __launch_bounds__(256)
+relayout_interleave_vec_kernel(const uint32_t* __restrict__ in,
+                               uint32_t* __restrict__ out, Idx n, int X,
+                               int L, int lxq, Idx in_stride) {
+  const Idx per = (Idx)(L >> 2) << lxq;  // blocks of one matrix
+  const Idx w = (Idx)blockIdx.x * 256 + threadIdx.x;
+  if (w >= n * per) return;
+  const Idx m = w / per;
+  const int r = (int)(w - m * per);
+  const int x4 = (r & ((1 << lxq) - 1)) * 4, l4 = (r >> lxq) * 4;
+  const uint32_t* src = in + m * in_stride + (Idx)x4 * L + l4;
+  uint4 v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = *reinterpret_cast<const uint4*>(src + (Idx)i * L);
+  uint32_t* dst = out + (m * L + l4) * X + x4;
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0].x, v[1].x, v[2].x, v[3].x);
+  *reinterpret_cast<uint4*>(dst + X) =
+      make_uint4(v[0].y, v[1].y, v[2].y, v[3].y);
+  *reinterpret_cast<uint4*>(dst + 2 * X) =
+      make_uint4(v[0].z, v[1].z, v[2].z, v[3].z);
+  *reinterpret_cast<uint4*>(dst + 3 * X) =
+      make_uint4(v[0].w, v[1].w, v[2].w, v[3].w);
 }
 
 __global__ void __launch_bounds__(TILE * TILE_ROWS)
@@ -270,13 +312,33 @@ inline unsigned tiles_of(const RelayoutParams* p) {
 extern "C" {
 
 // out[n, l, x] = in[n * in_stride + x * L + l].
+// With p->vec the caller vouches for what the 16-byte kernel needs
+// (ops/relayout.interleave_route).
 int compeg_relayout_interleave(const void* in, void* out,
                                const RelayoutParams* p, void* stream) {
   if (p->n > 0 && p->x > 0 && p->l > 0) {
-    relayout_interleave_kernel<<<dim3((unsigned)p->n, tiles_of(p)),
-                                 dim3(TILE, TILE_ROWS), 0,
-                                 (cudaStream_t)stream>>>(
-        (const uint32_t*)in, (uint32_t*)out, *p);
+    const cudaStream_t s = (cudaStream_t)stream;
+    const long long in_words = p->n * p->in_stride;
+    const long long total = p->n * p->x * p->l;
+    const bool narrow =
+        (in_words > total ? in_words : total) < (1LL << 31) - (1LL << 24);
+    if (p->vec) {
+      int lx = 0;
+      while ((1LL << lx) < p->x) ++lx;
+      const unsigned blocks = blocks_of(total / 16, 256);
+      if (narrow)
+        relayout_interleave_vec_kernel<int><<<blocks, 256, 0, s>>>(
+            (const uint32_t*)in, (uint32_t*)out, (int)p->n, (int)p->x,
+            (int)p->l, lx - 2, (int)p->in_stride);
+      else
+        relayout_interleave_vec_kernel<long long><<<blocks, 256, 0, s>>>(
+            (const uint32_t*)in, (uint32_t*)out, p->n, (int)p->x, (int)p->l,
+            lx - 2, p->in_stride);
+    } else {
+      relayout_interleave_kernel<<<dim3((unsigned)p->n, tiles_of(p)),
+                                   dim3(TILE, TILE_ROWS), 0, s>>>(
+          (const uint32_t*)in, (uint32_t*)out, *p);
+    }
   }
   return (int)cudaGetLastError();
 }

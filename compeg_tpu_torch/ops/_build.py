@@ -90,6 +90,12 @@ class DecodeParams(ctypes.Structure):
         ("mcu_h", ctypes.c_int32),
         ("row_off", ctypes.c_int32 * 16),
         ("col_off", ctypes.c_int32 * 32),
+        ("plane_units", ctypes.c_int32),
+        ("unit_du", ctypes.c_int32 * 6),
+        ("unit_pair", ctypes.c_int32 * 6),
+        ("unit_row", ctypes.c_int32 * 6),
+        ("unit_col", ctypes.c_int32 * 6),
+        ("plane_pitch", ctypes.c_int32 * 3),
     ]
 
 
@@ -103,14 +109,17 @@ class RelayoutParams(ctypes.Structure):
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
                 blk=8, zlen=64, frames=1, frame_rows=0,
-                composite=None) -> DecodeParams:
+                composite=None, planes=None) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
     kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
     ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
     and ``frame_rows``, the rows between two frames' first rows.
     ``composite`` is ``(mcu_w, mcu_h, row_off, col_off)`` of
     :func:`compeg_tpu_torch.ops.fused.composite_offsets`, read by the RGBA
-    kernels."""
+    kernels, ``planes`` the store units of
+    :func:`compeg_tpu_torch.ops.fused.plane_offsets`, ``(du, pair, row,
+    col)`` each, read by the planes kernels; the planes' pitches follow
+    ``width_mcus``."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -130,6 +139,12 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                              "larger than 32 x 16")
         p.row_off[:len(row_off)] = row_off
         p.col_off[:len(col_off)] = col_off
+    if planes is not None:
+        p.plane_units = len(planes)
+        for i, unit in enumerate(planes):
+            p.unit_du[i], p.unit_pair[i], p.unit_row[i], p.unit_col[i] = unit
+        for i, (h, _) in enumerate(samplings):
+            p.plane_pitch[i] = width_mcus * 8 * h
     slot = 0
     for i, c in enumerate(du_to_comp):
         p.du_to_comp[i] = c

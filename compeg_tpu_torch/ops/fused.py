@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -108,6 +108,38 @@ def composite_offsets(samplings: Tuple[Tuple[int, int], ...], blk: int = 8):
     return mw, mh, tuple(row_off), tuple(col_off)
 
 
+@functools.lru_cache(maxsize=None)
+def plane_offsets(samplings: Tuple[Tuple[int, int], ...]):
+    """The planes kernels' store units, ``(du, pair, row, col)`` each, in
+    data-unit order: data unit ``du`` lies at sample ``(row, col)`` of the
+    MCU's footprint in its component's plane (``8 * v`` by ``8 * h``
+    samples: the k-th unit of a component at ``(k // h * 8, k % h * 8)``),
+    and with ``pair`` the next data unit lies to its right, so that a row of
+    the unit is 16 neighbouring samples of the plane. Units pair up where a
+    component has an even number of data units side by side (h = 2 or 4:
+    the luma of 4:2:2, 4:2:0 and 4:1:1). :func:`component_planes
+    <compeg_tpu_torch.ops.color.component_planes>` places the same samples
+    by reshapes."""
+    units, slot = [], 0
+    for h, v in samplings:
+        for k in range(0, h * v, 2 if h % 2 == 0 else 1):
+            units.append((slot + k, int(h % 2 == 0), k // h * 8, k % h * 8))
+        slot += h * v
+    return tuple(units)
+
+
+def plane_store_route(ptr: int, h: int) -> str:
+    """How the planes kernels store a row into a component's plane that
+    starts at byte address ``ptr``, ``h`` data units side by side per MCU:
+    ``"16-byte"`` (a pair's row at once), ``"8-byte"`` or ``"byte"``.
+    Pitches and offsets are multiples of 8 (16 where units pair), so the
+    plane's base alone decides; planes the wrapper allocates take the widest
+    store their component allows."""
+    if h % 2 == 0 and ptr % 16 == 0:
+        return "16-byte"
+    return "8-byte" if ptr % 8 == 0 else "byte"
+
+
 def _params(rows, nseg, tables, geom, blk=8):
     return _build.make_params(
         nseg, rows.shape[-1], geom.ri, geom.total_mcus, geom.du_to_comp,
@@ -116,6 +148,7 @@ def _params(rows, nseg, tables, geom, blk=8):
         blk=blk, zlen=SCALED_ZLEN.get(blk, 64), frames=_frames(rows) or 1,
         frame_rows=rows.shape[-2],
         composite=composite_offsets(tuple(map(tuple, geom.samplings)), blk),
+        planes=plane_offsets(tuple(map(tuple, geom.samplings))),
     )
 
 
@@ -202,18 +235,32 @@ def plane_shapes(geom):
 
 
 def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
-                        op: torch.Tensor, geom,
-                        exact: bool = False) -> Tuple[torch.Tensor, ...]:
+                        op: torch.Tensor, geom, exact: bool = False,
+                        out: Optional[Sequence[torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, ...]:
     """Decode a frame to one u8 plane per component (kernel K3), see
     :func:`plane_shapes`; a ``[B, R, W]`` batch gives ``[B, Hc, Wc]`` planes
     in one launch. ``op`` is ``lq_t`` for the float IDCT, or the integer
-    quantizers when ``exact``."""
+    quantizers when ``exact``. ``out`` are the planes to write into,
+    contiguous u8 tensors of those shapes on the rows' device that may start
+    at any byte (:func:`plane_store_route`); new ones by default."""
+    shapes = [_batched(s, rows) for s in plane_shapes(geom)]
+    if out is not None and (len(out) != len(shapes) or any(
+            t.dtype != torch.uint8 or tuple(t.shape) != s
+            or not t.is_contiguous() or t.device != rows.device
+            for t, s in zip(out, shapes))):
+        raise ValueError(f"out must be contiguous uint8 planes {shapes} on "
+                         f"{rows.device}")
     if _check_args(rows, nseg, tables, op, geom, None if exact else 64):
-        return _per_frame(lambda r: fused_decode_planes_reference(
+        planes = _per_frame(lambda r: fused_decode_planes_reference(
             r, nseg, tables, op, geom, exact), rows)
-    planes = [torch.empty(_batched(s, rows), dtype=torch.uint8,
-                          device=rows.device)
-              for s in plane_shapes(geom)]
+        if out is None:
+            return planes
+        for t, plane in zip(out, planes):
+            t.copy_(plane)
+        return tuple(out)
+    planes = list(out) if out is not None else [
+        torch.empty(s, dtype=torch.uint8, device=rows.device) for s in shapes]
     entry = ("compeg_fused_decode_planes_exact" if exact
              else "compeg_fused_decode_planes")
     _build.launch(entry, rows, tables.packed, op,

@@ -9,7 +9,8 @@ compute is one hand-written kernel:
 
 * :func:`relayout_interleave`: the minor transpose ``[..., X, L] ->
   [..., L, X]`` flattened to ``[..., L * X]``, optionally with the rows
-  stacked as the raster form stacks them;
+  stacked as the raster form stacks them. It has a 16-byte vector kernel
+  and a word kernel; :func:`interleave_route` picks between them;
 * :func:`relayout_swap_crop`: the assembly's tile swap and the crop to
   ``[H, W]`` in one pass;
 * :func:`relayout_stack`: ``[g, s, r, x, l] -> [g, x, s * R + r, l]``;
@@ -73,6 +74,23 @@ def relayout_interleave_reference(v: torch.Tensor,
     return out.reshape(_interleave_shape(v.shape, stack_rows))
 
 
+def interleave_route(in_ptr: int, out_ptr: int, n: int, x: int, l: int,
+                     in_stride: int) -> str:
+    """Which kernel an interleave of ``n`` matrices ``[x, l]`` takes, from
+    its pointers (byte addresses), sizes and batch stride alone: ``"vec"``,
+    the 16-byte kernel, or ``"word"``, the tile of single words.
+
+    The vector kernel moves 4 x 4 blocks, so it needs X in {4, 8, 16, 32}
+    (its index splits are shifts), rows of whole vectors (``l % 4 == 0``),
+    both pointers on a 16-byte boundary, and, for more than one matrix, a
+    batch stride of whole vectors."""
+    if x not in (4, 8, 16, 32) or l % 4 or in_ptr % 16 or out_ptr % 16:
+        return "word"
+    if n > 1 and in_stride % 4:
+        return "word"
+    return "vec"
+
+
 def relayout_interleave(v: torch.Tensor,
                         stack_rows: bool = False) -> torch.Tensor:
     """``out[..., l * X + x] = v[..., x, l]`` for ``v [..., X, L]``
@@ -94,8 +112,11 @@ def relayout_interleave(v: torch.Tensor,
     n = batch.shape[0]
     out = torch.empty(_interleave_shape(v.shape, stack_rows),
                       dtype=torch.int32, device=v.device)
+    in_stride = batch.stride(0) if n > 1 else x * l
+    route = interleave_route(batch.data_ptr(), out.data_ptr(), n, x, l,
+                             in_stride)
     _launch("compeg_relayout_interleave", "interleave", batch, out, n=n, x=x,
-            l=l, in_stride=batch.stride(0) if n > 1 else x * l)
+            l=l, in_stride=in_stride, vec=int(route == "vec"))
     return out
 
 

@@ -1,7 +1,8 @@
 """Single-image decode orchestration on PyTorch: the port of
-:mod:`compeg_tpu.pipeline`'s fused tier.
+:mod:`compeg_tpu.pipeline`.
 
-A frame decode is host preparation plus ONE fused kernel launch:
+A frame decode is host preparation plus ONE fused kernel launch (the fused
+tier, the default):
 
     prepare (host: header cache, native scan_info + destuff/split/pack into
     linear segment rows, device-budget check, stream constants)
@@ -13,11 +14,19 @@ A frame decode is host preparation plus ONE fused kernel launch:
          K2s fused_decode_scaled      decode_scaled(k), k in {1, 2, 4}
       -> packed RGBA [H, W] int32 on the device (u8 planes for decode_ycbcr)
 
-``zrl_compat`` changes only the entropy phase, in every kernel. The staged
-tier (``fused=False``) is not ported yet. The host layer (parser, metadata,
-scan, the native packer) is the port's own copy of the JAX package's;
-nothing here imports jax or ``compeg_tpu``. Batches and streams of frames
-are :mod:`compeg_tpu_torch.batch`.
+or, with ``Decoder(fused=False)``, the staged tier
+(:func:`decode_frame_device`): the entropy kernel alone and every later
+stage as torch ops, each result a tensor one can look at:
+
+      -> K1 entropy_decode            [nseg, ri, DUS, 64] int32 coefficients
+      -> ops/idct.idct_pixels, or ops/int_idct.idct_pixels_int (exact_idct)
+      -> ops/color.component_planes -> finalize_planes (nearest or fancy)
+      -> [H, W, 3] u8 on the device
+
+``zrl_compat`` changes only the entropy phase, in every kernel. The host
+layer (parser, metadata, scan, the native packer) is the port's own copy of
+the JAX package's; nothing here imports jax or ``compeg_tpu``. Batches and
+streams of frames are :mod:`compeg_tpu_torch.batch`.
 """
 
 from __future__ import annotations
@@ -97,6 +106,44 @@ class PreparedFrame:
     consts: Optional[Dict] = dataclasses.field(default=None, repr=False)
 
 
+def decode_frame_device(rows: torch.Tensor, nseg: int,
+                        tables: E.EntropyTables, qz_by_slot,
+                        geom: FrameGeometry, retained: int = 64,
+                        fancy: bool = False, exact_idct: bool = False,
+                        op: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The staged frame decode: segment rows ``[>= nseg, W]`` int32 ->
+    ``[H, W, 3]`` u8 on the rows' device (``decode_frame_device``,
+    compeg_tpu/pipeline.py:80-106).
+
+    Kernel K1 (:func:`~compeg_tpu_torch.ops.entropy.entropy_decode`) decodes
+    the coefficients; the IDCT (float, or the integer butterfly with
+    ``exact_idct``), the component planes, the chroma upsampling (nearest, or
+    the triangle filter with ``fancy``) and the colour conversion are torch
+    ops, as they are XLA ops outside any kernel in the JAX package.
+    ``qz_by_slot`` are the ``[DUS, 64]`` zigzag quantizers of
+    :func:`~compeg_tpu_torch.ops.idct.qz_by_slot_array`; ``op`` is the IDCT
+    operand made from them for ``retained`` (``idct_operators``, or
+    ``int_quantizers`` with ``exact_idct``) where the caller keeps it on the
+    device (``qz_by_slot`` may then be None), else it is made here."""
+    if op is None:
+        make = I.int_quantizers if exact_idct else D.idct_operators
+        op = make(np.asarray(qz_by_slot), retained, rows.device)
+    coeffs = E.entropy_decode(rows, nseg, tables, geom.ri, geom.total_mcus,
+                              geom.du_to_comp)
+    pixels = I.idct_pixels_int(coeffs, op) if exact_idct else D.idct_pixels(
+        coeffs, op)
+    planes = C.component_planes(pixels, geom)
+    rgba = C.finalize_planes(planes, geom.samplings, geom.width, geom.height,
+                             fancy=fancy, rgb=geom.rgb)
+    return F.rgba_to_rgb(rgba)
+
+
+def to_rgb_tensor(out: torch.Tensor) -> torch.Tensor:
+    """A decode result as ``[..., H, W, 3]`` u8: the fused tier's packed
+    RGBA ``[..., H, W]`` int32 unpacked, the staged tier's u8 as it is."""
+    return out if out.dtype == torch.uint8 else F.rgba_to_rgb(out)
+
+
 class Decoder:
     """Per-stream decoder. Reuse one instance across the frames of a stream:
     it keeps the last header and its device-resident constants."""
@@ -113,11 +160,12 @@ class Decoder:
         planes_epilogue: Optional[bool] = None,
         fused: bool = True,
     ):
-        if not fused:
-            raise NotImplementedError(
-                "Decoder(fused=False) is not ported to compeg_tpu_torch yet "
-                "(ROADMAP.md queue 1 item 7)"
-            )
+        # fused=False: the staged tier (decode_frame_device) for decode,
+        # decode_rgba, start_decode and decode_prepared; decode_ycbcr and
+        # decode_scaled have no staged form in the port and stay on K3 and
+        # K2s. The JAX package also sends fancy frames it cannot tile to its
+        # staged tier; the port has no tiling, so only fused=False does.
+        self.fused = fused
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -293,11 +341,15 @@ class Decoder:
         """Device budget of ``frames`` frames decoded at once: the raster
         output (MCU-padded bound), the u8 component planes of the planes
         kernel (one byte per sample), and the scan words, which are at most
-        the scan's bytes plus a word per segment."""
+        the scan's bytes plus a word per segment. The staged tier also holds
+        K1's coefficients, ``[nseg, ri, DUS, 64]`` int32 (66 MB at 4K), one
+        frame's at a time."""
         nseg = img.total_restart_intervals
         est = frames * (img.total_mcus * (img.mcu_width * img.mcu_height * 4
                                           + img.dus_per_mcu * 64)
                         + len(img.scan_data) + 4 * nseg)
+        if not self.fused:
+            est += nseg * img.restart_interval * img.dus_per_mcu * 64 * 4
         if est > self.max_device_bytes:
             raise CompegError(
                 f"decode would need ~{est >> 20} MiB of device buffers "
@@ -340,8 +392,19 @@ class Decoder:
         """Decode segment rows that are on the device already, on the
         current stream: one frame's ``[>= nseg, W]`` int32 to packed RGBA
         ``[H, W]`` int32, or a ``[B, R, W]`` batch of frames that share
-        ``pf``'s geometry and tables to ``[B, H, W]`` in one launch."""
+        ``pf``'s geometry and tables to ``[B, H, W]`` in one launch. The
+        staged tier gives ``[H, W, 3]`` (``[B, H, W, 3]``) u8 instead, like
+        the JAX package's, frame by frame with one K1 launch each."""
         g = pf.geom
+        if not self.fused:
+            def staged(r):
+                return decode_frame_device(
+                    r, pf.nseg, pf.tables, None, g, self.retained,
+                    self.fancy, self.exact_idct, op=pf.op)
+
+            if rows.dim() == 2:
+                return staged(rows)
+            return torch.stack([staged(r) for r in rows])
         if self.fancy or self.planes_epilogue is True:
             planes = self._planes(pf, rows)
 
@@ -360,18 +423,22 @@ class Decoder:
         return decode(rows, pf.nseg, pf.tables, pf.op, g)
 
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
-        """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device."""
+        """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device
+        (the staged tier: ``[H, W, 3]`` u8)."""
         return self.decode_rows(pf, self.upload(pf))
 
     def decode(self, data) -> np.ndarray:
         """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array."""
         out = self.decode_prepared(self.prepare(data))
-        return F.rgba_to_rgb(out).cpu().numpy()
+        return to_rgb_tensor(out).cpu().numpy()
 
     def decode_rgba(self, data) -> np.ndarray:
         """Decode to ``[H, W, 4]`` u8 RGBA (alpha 255), the reference's
         output format."""
         out = self.decode_prepared(self.prepare(data)).cpu().numpy()
+        if out.dtype == np.uint8:  # the staged tier's [H, W, 3]
+            alpha = np.full(out.shape[:2] + (1,), 255, np.uint8)
+            return np.concatenate([out, alpha], axis=-1)
         return out.view(np.uint8).reshape(out.shape + (4,))
 
     def start_decode(self, data) -> "DecodeOp":
@@ -425,13 +492,15 @@ class DecodeOp:
     src/lib.rs:538-574). ``geometry_changed`` tells the caller to rebuild
     what depends on the frame size."""
 
-    result: torch.Tensor  # packed RGBA [H, W] int32 on the device
+    # on the device: packed RGBA [H, W] int32, or the staged tier's
+    # [H, W, 3] u8
+    result: torch.Tensor
     geometry: FrameGeometry
     geometry_changed: bool
 
     def rgb(self) -> np.ndarray:
         """Blocking readback to ``[H, W, 3]`` u8."""
-        return F.rgba_to_rgb(self.result).cpu().numpy()
+        return to_rgb_tensor(self.result).cpu().numpy()
 
     def block_until_ready(self) -> "DecodeOp":
         if self.result.is_cuda:

@@ -26,7 +26,8 @@ rounds, backward in odd ones), the median of ``--reps`` rounds per tree; K2,
 K2x and K3 also on a batch of ``FRAMES`` copies of the frame, per frame;
 the copy of a 4K raster's 33.5 MB, alternating between two inputs so that no
 launch finds its input in the L2 cache, beside ``torch.clone()`` in the same
-rounds. ``--ptxas``
+rounds, and the interleave of as many bytes beside
+``transpose(-1, -2).contiguous()``. ``--ptxas``
 prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu (registers,
 spills) first. One JSON object with every median is printed and, with
 ``--out``, written to that file.
@@ -122,6 +123,8 @@ def frame_calls(data: bytes, device) -> Dict[str, Callable]:
         "K2x": rgba("compeg_fused_decode_exact", qz, src=_stack(rows, b)),
         "K3 int": planes("compeg_fused_decode_planes_exact", qz,
                          src=_stack(rows, b)),
+        "K3 float": planes("compeg_fused_decode_planes", pf.op,
+                           src=_stack(rows, b)),
     }
     return calls
 
@@ -132,7 +135,10 @@ def _stack(rows: torch.Tensor, b: int) -> torch.Tensor:
 
 def relayout_calls(device) -> Dict[str, Callable]:
     """The copy of a 4K raster (aligned, and one word off), a strided copy
-    and the 16-fold spread and merge, through each tree's P4 entry point."""
+    and the 16-fold spread and merge, through each tree's P4 entry point;
+    the interleave at the probe's shape (``[4096, 16, 128]``, 33.5 MB) through
+    each tree's P1 entry point, on the route ``interleave_route`` picks and
+    on the word kernel."""
     bigs = [torch.randint(0, 1 << 24, (2160 * 3840 + 4,), dtype=torch.int32,
                           device=device) for _ in range(2)]
     grid = [b[:2160 * 3840].reshape(2160, 3840) for b in bigs]
@@ -153,6 +159,22 @@ def relayout_calls(device) -> Dict[str, Callable]:
             return (out,)
         return call
 
+    mats = [b[:2160 * 3840 // 2048 * 2048].reshape(-1, 16, 128) for b in bigs]
+
+    def p1(vec=None):
+        def call(lib, i=0):
+            a = mats[i % 2]
+            n, x, l = a.shape
+            out = torch.empty((n, l * x), dtype=torch.int32, device=device)
+            route = R.interleave_route(a.data_ptr(), out.data_ptr(), n, x, l,
+                                       a.stride(0))
+            _build.launch("compeg_relayout_interleave", a, out, lib=lib,
+                          params=_build.RelayoutParams(
+                              n=n, x=x, l=l, in_stride=a.stride(0),
+                              vec=int(route == "vec") if vec is None else vec))
+            return (out,)
+        return call
+
     off = [b[1:1 + 2160 * 3840].reshape(2160, 3840) for b in bigs]
     cols = [g[:, :3836] for g in grid]
     return {
@@ -161,7 +183,11 @@ def relayout_calls(device) -> Dict[str, Callable]:
         "copy of strided rows": p4(cols, cols, 1),
         "spread x16 to 33.5 MB": p4([small[0]] * 2, [small[0]] * 2, 16),
         "merge x16 to 33.5 MB": p4([small[0]] * 2, [small[1]] * 2, 16),
+        "interleave 33.2 MB": p1(),
+        "interleave 33.2 MB, word kernel": p1(0),
         "_clone": lambda lib, i=0: (grid[i % 2].clone(),),
+        "_transpose": lambda lib, i=0: (
+            mats[i % 2].transpose(-1, -2).contiguous(),),
     }
 
 
@@ -230,7 +256,7 @@ def main(argv=None) -> int:
                 bad.append(f"{label}: {name} differs from {names[0]} by up "
                            f"to {differences(got, want)}")
 
-    calls4k, batch, rl, clone = {}, {}, {}, None
+    calls4k, batch, rl, clone, transpose = {}, {}, {}, None, None
     if args.kernels != "relayout":
         vec = testdata.load()
         for i, label in enumerate(vec["labels"]):
@@ -245,6 +271,7 @@ def main(argv=None) -> int:
     if args.kernels != "decode":
         rl = relayout_calls(device)
         clone = rl.pop("_clone")
+        transpose = rl.pop("_transpose")
     for kname, call in {**calls4k, **rl}.items():
         check(f"4K {kname}", call)
     for kname, call in batch.items():
@@ -268,9 +295,13 @@ def main(argv=None) -> int:
         timed(f"{kname} batched, per frame of {FRAMES}", call,
               max(3, args.reps // 4), per=FRAMES, burst=1)
     for kname, call in rl.items():
-        timed(kname, call, args.reps,
-              extra=[("torch.clone", lambda i: clone(None, i))]
-              if kname.startswith("copy 33.5 MB") else ())
+        extra = ()
+        if kname.startswith("copy 33.5 MB"):
+            extra = [("torch.clone", lambda i: clone(None, i))]
+        elif kname.startswith("interleave"):
+            extra = [("transpose(-1,-2).contiguous()",
+                      lambda i: transpose(None, i))]
+        timed(kname, call, args.reps, extra=extra)
     result["differences"] = bad
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -450,3 +450,111 @@ def test_burst_ms_times_the_card_not_the_host(cuda):
     ms = min(profiling.burst_ms(lambda i: R.relayout_copy(a)) for _ in range(5))
     assert 2 * a.numel() * 4 / 3.35e12 * 1e3 < ms < 0.1
     print("burst_ms of the 4K copy:", ms)
+
+
+# -- the staged tier, the plane store's routes and the interleave's, on the card
+
+
+@pytest.mark.parametrize("sampling,ri", CASES)
+@pytest.mark.parametrize("fancy", [False, True])
+def test_staged_tier_runs_k1_and_equals_golden(cuda, sampling, ri, fancy,
+                                               test_image):
+    """Decoder(fused=False): one launch of K1 and no fused kernel; with
+    exact_idct golden's integer RGB (nearest) or the fused fancy decode's
+    bytes; the float decode within 1 of golden."""
+    data = encoder.encode(test_image(17, 37, "noise"), sampling=sampling,
+                          quality=90, restart_interval_mcus=ri)
+    dec = Decoder(device=cuda, fused=False, exact_idct=True,
+                  fancy_upsampling=fancy)
+    got = counted("entropy", dec.decode, data)
+    if fancy:
+        want = Decoder(device=cuda, exact_idct=True,
+                       fancy_upsampling=True).decode(data)
+    else:
+        want = golden.decode_rgb(data, idct="int")
+    assert np.array_equal(got, want)
+    flt = counted("entropy", Decoder(device=cuda, fused=False).decode, data)
+    if not fancy:
+        assert np.abs(flt.astype(int) - golden.decode_rgb(data)).max() <= 1
+
+
+def test_staged_batch_on_the_card(cuda, test_image):
+    frames = batch_frames("420", 5, 40, 136, test_image)
+    bdec = BatchDecoder(device=cuda, fused=False, exact_idct=True)
+    before = dict(_build.LAUNCHES)
+    got = bdec.decode(frames)
+    want = dict(before, entropy=before["entropy"] + len(frames))
+    assert _build.LAUNCHES == want  # a K1 launch per frame, no fused kernel
+    for i, f in enumerate(frames):
+        assert np.array_equal(got[i], golden.decode_rgb(f, idct="int")), i
+
+
+@pytest.mark.parametrize("offset,routes", [(0, {"16-byte", "8-byte"}),
+                                           (8, {"8-byte"}), (16, None),
+                                           (1, {"byte"}), (4, {"byte"})])
+@pytest.mark.parametrize("sampling,ri,h,w", [("422", 1, 17, 37),
+                                             ("420", 3, 18, 38),
+                                             ("411", 1, 24, 40),
+                                             ("444", 2, 17, 37)])
+@pytest.mark.parametrize("exact", [True, False])
+def test_plane_store_at_every_alignment(cuda, exact, sampling, ri, h, w,
+                                        offset, routes, test_image):
+    """K3 into planes that start 0, 1, 4, 8 and 16 bytes off a 16-byte
+    boundary: the 16-byte, 8-byte and byte-wise stores, each equal to the
+    planes the wrapper allocates itself and (integer IDCT) to the plain K3,
+    and nothing written outside."""
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=h, w=w,
+                              exact_idct=exact)
+    args = (rows, pf.nseg, pf.tables, pf.op, pf.geom)
+    want = counted("planes", F.fused_decode_planes, *args, exact=exact)
+    if exact:
+        for p, q in zip(want, F.fused_decode_planes_reference(*args,
+                                                              exact=True)):
+            assert torch.equal(p, q)
+    shapes = F.plane_shapes(pf.geom)
+    bufs = [torch.full((hh * ww + 64,), 7, dtype=torch.uint8, device=cuda)
+            for hh, ww in shapes]
+    out = []
+    for b, (hh, ww) in zip(bufs, shapes):
+        start = (-b.data_ptr()) % 16 + offset
+        out.append(b[start:start + hh * ww].reshape(hh, ww))
+    got_routes = {F.plane_store_route(o.data_ptr(), hs)
+                  for o, (hs, _) in zip(out, pf.geom.samplings)}
+    if routes is not None:
+        assert got_routes <= routes | {"8-byte"} and got_routes & routes
+    got = counted("planes", F.fused_decode_planes, *args, exact=exact,
+                  out=out)
+    for g, q in zip(got, want):
+        assert torch.equal(g, q)
+    for b, o in zip(bufs, out):
+        start = o.data_ptr() - b.data_ptr()
+        assert (b[:start] == 7).all() and (b[start + o.numel():] == 7).all()
+
+
+@pytest.mark.parametrize("name,make,route", [
+    ("aligned", lambda b: b[:8 * 16 * 128].reshape(8, 16, 128), "vec"),
+    ("one word off", lambda b: b[1:1 + 8 * 16 * 128].reshape(8, 16, 128),
+     "word"),
+    ("X = 3", lambda b: b[:8 * 3 * 128].reshape(8, 3, 128), "word"),
+    ("X = 4", lambda b: b[:8 * 4 * 128].reshape(8, 4, 128), "vec"),
+    ("X = 32", lambda b: b[:8 * 32 * 64].reshape(8, 32, 64), "vec"),
+    ("X = 64", lambda b: b[:8 * 64 * 32].reshape(8, 64, 32), "word"),
+    ("L = 130", lambda b: b[:8 * 16 * 130].reshape(8, 16, 130), "word"),
+    ("strided batch", lambda b: b[:8 * 4 * 16 * 128].reshape(
+        8, 4, 16, 128)[:, 1], "vec"),
+    ("5-d", lambda b: b[:2 * 2 * 2 * 16 * 128].reshape(2, 2, 2, 16, 128),
+     "vec"),
+])
+def test_interleave_on_each_route(cuda, name, make, route):
+    base = torch.randint(0, 1 << 24, (8 * 4 * 16 * 128 + 8,),
+                         dtype=torch.int32, device=cuda)
+    v = make(base)
+    got = counted("interleave", R.relayout_interleave, v)
+    assert torch.equal(got, R.relayout_interleave_reference(v))
+    x, l = v.shape[-2:]
+    batch = v.reshape(-1, x, l) if v.is_contiguous() else v
+    assert R.interleave_route(batch.data_ptr(), got.data_ptr(),
+                              batch.shape[0], x, l, batch.stride(0)) == route
+    if v.dim() == 5:
+        stacked = counted("interleave", R.relayout_interleave, v, True)
+        assert torch.equal(stacked, R.relayout_interleave_reference(v, True))

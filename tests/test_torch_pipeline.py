@@ -104,12 +104,17 @@ def test_device_budget_raises(test_image):
         Decoder(device="cpu", max_device_bytes=1024).decode(data)
 
 
-@pytest.mark.parametrize("knob,value", [("fused", False)])
-def test_unported_knobs_raise(knob, value):
-    """The staged tier (fused=False) is the one knob not ported yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        Decoder(device="cpu", **{knob: value})
-    Decoder(device="cpu", **{knob: True})  # the default is accepted
+def test_fused_false_takes_the_staged_tier(test_image):
+    """fused=False is the staged tier: [H, W, 3] u8 from decode_prepared,
+    the same picture from decode (tests/test_torch_staged.py has the
+    parity)."""
+    data = encoder.encode(test_image(24, 40), sampling="422",
+                          restart_interval_mcus=1)
+    dec = Decoder(device="cpu", fused=False)
+    out = dec.decode_prepared(dec.prepare(data))
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (24, 40, 3)
+    assert np.array_equal(dec.decode(data), out.numpy())
+    assert Decoder(device="cpu").fused is True  # the default
 
 
 def test_unknown_knob_is_refused():

@@ -216,3 +216,80 @@ def test_copy_of_higher_rank_and_what_it_refuses():
         R.relayout_copy(t(x)[:, :, ::2])
     with pytest.raises(ValueError, match="X >= 1"):
         R.relayout_spread(t(x)[0, 0], 0)
+
+
+# -- the interleave's choice of kernels ---------------------------------------
+
+INTERLEAVE_ROUTES = [
+    # in_ptr, out_ptr, n, x, l, in_stride, route
+    (A, A, 4096, 16, 128, 2048, "vec"),        # the probe's shape
+    (A + 4, A, 4096, 16, 128, 2048, "word"),   # input one word off
+    (A, A + 4, 4096, 16, 128, 2048, "word"),   # output one word off
+    (A + 16, A + 32, 4096, 16, 128, 2048, "vec"),
+    (A, A, 8, 4, 128, 512, "vec"), (A, A, 8, 8, 128, 1024, "vec"),
+    (A, A, 8, 32, 64, 2048, "vec"),
+    (A, A, 8, 1, 128, 128, "word"), (A, A, 8, 2, 128, 256, "word"),
+    (A, A, 8, 3, 128, 384, "word"),            # X no power of two
+    (A, A, 8, 12, 128, 1536, "word"),
+    (A, A, 8, 64, 128, 8192, "word"),          # X over 32
+    (A, A, 8, 16, 130, 2080, "word"),          # rows of no whole vectors
+    (A, A, 8, 16, 126, 2016, "word"),
+    (A, A, 8, 16, 4, 64, "vec"),               # one vector a row
+    (A, A, 8, 16, 128, 8 * 2048, "vec"),       # a strided batch, t[:, 0]
+    (A, A, 8, 16, 128, 2050, "word"),          # ... a ragged stride apart
+    (A, A, 1, 16, 128, 2050, "vec"),           # one matrix has no stride
+]
+
+
+@pytest.mark.parametrize("in_ptr,out_ptr,n,x,l,in_stride,route",
+                         INTERLEAVE_ROUTES)
+def test_interleave_route_is_a_function_of_pointers_strides_and_lengths(
+        in_ptr, out_ptr, n, x, l, in_stride, route):
+    assert R.interleave_route(in_ptr, out_ptr, n, x, l, in_stride) == route
+
+
+def test_interleave_route_of_real_tensors():
+    base = torch.zeros(4 * 8 * 16 * 128 + 8, dtype=torch.int32)
+    base = base[(-base.data_ptr() // 4) % 4:]  # 16-byte aligned from here
+    out = base.data_ptr()
+
+    def route(v):
+        x, l = v.shape[-2:]
+        batch = v.reshape(-1, x, l) if v.is_contiguous() else v
+        return R.interleave_route(batch.data_ptr(), out, batch.shape[0], x, l,
+                                  batch.stride(0))
+
+    t5 = base[:4 * 8 * 16 * 128].reshape(4, 8, 16, 128)
+    assert route(t5) == "vec" and route(t5[:, 0]) == "vec"
+    assert route(base[1:1 + 4 * 8 * 16 * 128].reshape(4, 8, 16, 128)) == "word"
+    assert route(base[:4 * 8 * 3 * 128].reshape(4, 8, 3, 128)) == "word"
+    assert route(base[:4 * 2 * 64 * 128].reshape(4, 2, 64, 128)) == "word"
+    assert route(base[:4 * 8 * 16 * 127].reshape(4, 8, 16, 127)) == "word"
+
+
+@pytest.mark.parametrize("x,l,n", [(16, 128, 5), (4, 8, 3), (32, 64, 2),
+                                   (8, 12, 4)])
+def test_interleave_vector_walk_equals_numpy(x, l, n):
+    """relayout_interleave_vec_kernel's index arithmetic in numpy: thread w
+    owns the 4 x 4 block (x4, l4) of matrix m, the X / 4 blocks of one l4
+    side by side; four loads along l, four stores of transposed vectors."""
+    a = random_u32((n, x, l), seed=x + l)
+    want = a.transpose(0, 2, 1).reshape(n, l * x)
+    assert R.interleave_route(A, A, n, x, l, x * l) == "vec"
+    lxq = (x // 4).bit_length() - 1
+    per = (l >> 2) << lxq
+    flat, out = a.reshape(-1), np.zeros(n * x * l, np.uint32)
+    written = np.zeros(out.size, np.int32)
+    for w in range(n * per):
+        m, r = divmod(w, per)
+        x4, l4 = (r & ((1 << lxq) - 1)) * 4, (r >> lxq) * 4
+        src = m * x * l + x4 * l + l4
+        v = [flat[src + i * l:src + i * l + 4] for i in range(4)]
+        dst = (m * l + l4) * x + x4
+        for k in range(4):
+            at = dst + k * x
+            assert at % 4 == 0  # a 16-byte aligned store
+            out[at:at + 4] = [v[i][k] for i in range(4)]
+            written[at:at + 4] += 1
+    assert (written == 1).all()
+    assert np.array_equal(out.reshape(n, l * x), want)

@@ -219,7 +219,8 @@ CASES += [(f"422 ri={ri} 16x48", "422", ri, 16, 48, 64, False)
 CASES += [("422 ri=1 17x37", "422", 1, 17, 37, 64, False),
           ("420 ri=3 40x72", "420", 3, 40, 72, 64, False),
           ("444 RGB-ID 24x40", "444", None, 24, 40, 64, True),
-          ("422 ri=1 24x40 retained=32", "422", 1, 24, 40, 32, False)]
+          ("422 ri=1 24x40 retained=32", "422", 1, 24, 40, 32, False),
+          ("420 ri=1 18x38", "420", 1, 18, 38, 64, False)]
 
 
 def case_stream(i: int) -> bytes:
