@@ -10,8 +10,10 @@ the 4K benchmark frame, drives each Decoder path with the launch counters
 zeroed (the default decode, the exact decode, decode_ycbcr, the fancy decode,
 the planes epilogue, decode_scaled and the staged decode of fused=False,
 which runs the entropy kernel K1 and torch ops) and checks that each went
-through its own kernel, checks that garbage entropy bits terminate in every
-kernel, and times the kernels against their plain versions, the staged
+through its own kernel, checks that every kernel terminates on garbage
+entropy bits (the 4K frame's scan at eight seeds) and on a small stream
+with random scan bytes changed, and agrees with its plain version there,
+and times the kernels against their plain versions, the staged
 path's stages and the torch epilogue of the planes paths. Then the batch and the
 stream: small batches of frames that differ, and 64 frames of 3840x2160
 4:2:2 (the benchmark frame with its restart segments rotated, so every frame
@@ -60,6 +62,8 @@ SCALES = (1, 2, 4)
 SOURCE = "compeg_tpu_torch/csrc/decode.cu"
 RELAYOUT_SOURCE = "compeg_tpu_torch/csrc/relayout.cu"
 BATCH = 64  # frames of the 4K batch and stream
+GARBAGE_SEEDS = range(5, 13)  # frames of random entropy bits (phase e)
+FUZZ = 40  # scan-byte mutations of a small stream (phase e)
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory and float32
 # outside the tensor cores. Integer operations are held to the same rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -121,7 +125,7 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
         return 1
     sys.path.insert(0, ROOT)
-    from compeg_tpu_torch import native, profiling, testdata
+    from compeg_tpu_torch import CompegError, native, profiling, testdata
     from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder
     from compeg_tpu_torch.ops import _build
     from compeg_tpu_torch.ops import color as C
@@ -520,42 +524,109 @@ def main() -> int:
         "bit-identical to golden.decode_rgb(idct='int') (sha256): one launch "
         "of K1, no fused kernel; the float staged decode inside the envelope")
 
-    # ---- (e) garbage entropy bits terminate ---------------------------------
+    # ---- (e) garbage bits and mutated scans ------------------------------
+    # Every kernel must return on any bits (a thread that never ends hangs the
+    # launch) and agree with its plain twin: K1, K2x and K3 bit for bit, K2
+    # and K2s in their shapes, K2 and K2s within 1 on the small stream (their
+    # float sums run in another order than the plain einsum's).
+    def against_plain(data):
+        """(prepared exact frame, its rows, {kernel: (output, plain)})."""
+        gpf, grows = exact_frame(data)
+        g = gpf.geom
+        qsl = D.qz_by_slot_array(gpf.image)
+        lq8 = D.idct_operators(qsl, device=grows.device)
+        base = (grows, gpf.nseg, gpf.tables)
+        coef = (g.ri, g.total_mcus, g.du_to_comp)
+        out = {
+            "K1": (E.entropy_decode(*base, *coef),
+                   E.entropy_decode_reference(*base, *coef)),
+            "K2x": (F.fused_decode_rgba_exact(*base, gpf.op, g),
+                    F.fused_decode_rgba_exact_reference(*base, gpf.op, g)),
+            "K3": (F.fused_decode_planes(*base, gpf.op, g, exact=True),
+                   F.fused_decode_planes_reference(*base, gpf.op, g,
+                                                   exact=True)),
+            "K2": (F.fused_decode_rgba(*base, lq8, g),
+                   F.fused_decode_rgba_reference(*base, lq8, g)),
+        }
+        for k in SCALES:
+            lq_k = D.scaled_operators(qsl, k, device=grows.device)
+            out[f"K2s k={k}"] = (F.fused_decode_scaled(*base, lq_k, g, k),
+                                 F.fused_decode_scaled_reference(*base, lq_k,
+                                                                 g, k))
+        torch.cuda.synchronize()
+        return gpf, grows, out
+
+    def float_errors(out, g):
+        """max |diff| of K2 and K2s from their plain twins, their shapes
+        checked."""
+        errs = {}
+        for name, (got, want) in out.items():
+            if name.startswith("K2") and name != "K2x":
+                k = int(name[-1]) if "=" in name else 8
+                gk = F.scaled_geometry(g, k)
+                require(tuple(got.shape) == (gk.height, gk.width),
+                        f"{name} gave {tuple(got.shape)}")
+                errs[name] = pixel_stats(rgb(got), rgb(want))[0]
+        return errs
+
+    def exact_ok(out):
+        return (torch.equal(*out["K1"]) and torch.equal(*out["K2x"])
+                and all(torch.equal(p, q) for p, q in zip(*out["K3"])))
+
     img = pf.image
-    off = img.scan_offset
-    scan = np.frombuffer(data4k[off:off + len(img.scan_data)], np.uint8).copy()
-    keep = scan == 0xFF
-    keep[1:] |= keep[:-1]  # every FF and the byte after it (RST, stuffing)
-    noise = np.random.default_rng(5).integers(0, 255, scan.size, dtype=np.uint8)
-    scan[~keep] = noise[~keep]
-    garbage = data4k[:off] + scan.tobytes() + data4k[off + scan.size:]
-    gpf, grows = exact_frame(garbage)
-    g = gpf.geom
     t0 = time.perf_counter()
-    gk1 = E.entropy_decode(grows, gpf.nseg, gpf.tables, g.ri, g.total_mcus,
-                           g.du_to_comp)
-    gk2 = F.fused_decode_rgba(grows, gpf.nseg, gpf.tables,
-                              D.idct_operators(D.qz_by_slot_array(gpf.image),
-                                               device=grows.device), g)
-    gk2x = F.fused_decode_rgba_exact(grows, gpf.nseg, gpf.tables, gpf.op, g)
-    gk3 = F.fused_decode_planes(grows, gpf.nseg, gpf.tables, gpf.op, g,
-                                exact=True)
-    gk2s = F.fused_decode_scaled(grows, gpf.nseg, gpf.tables, D.scaled_operators(
-        D.qz_by_slot_array(gpf.image), 1, device=grows.device), g, 1)
-    torch.cuda.synchronize()
-    log(f"(e) garbage bits: K1, K2, K2x, K3, K2s returned in "
-        f"{time.perf_counter() - t0:.3f} s; K2 {tuple(gk2.shape)}, K2s "
-        f"{tuple(gk2s.shape)}")
-    gref = E.entropy_decode_reference(grows, gpf.nseg, gpf.tables, g.ri,
-                                      g.total_mcus, g.du_to_comp)
-    args = (grows, gpf.nseg, gpf.tables, gpf.op, g)
-    require(torch.equal(gk1, gref) and tuple(gk2.shape) == (g.height, g.width),
-            "garbage bits: K1 differs from its plain version")
-    require(torch.equal(gk2x, F.fused_decode_rgba_exact_reference(*args))
-            and all(torch.equal(p, q) for p, q in zip(
-                gk3, F.fused_decode_planes_reference(*args, exact=True))),
-            "garbage bits: K2x or K3 differs from its plain version")
-    log("(e) garbage bits: K1 == plain K1, K2x == plain K2x, K3 == plain K3")
+    garbage_err = {}
+    for seed in GARBAGE_SEEDS:
+        garbage = testdata.garbage_scan(data4k, img.scan_offset,
+                                        len(img.scan_data), seed)
+        gpf_s, grows_s, out = against_plain(garbage)
+        require(exact_ok(out), f"garbage bits (seed {seed}): K1, K2x or K3 "
+                "differs from its plain version")
+        errs = float_errors(out, gpf_s.geom)
+        garbage_err = {k: max(v, garbage_err.get(k, 0))
+                       for k, v in errs.items()}
+        if seed == GARBAGE_SEEDS[0]:  # phase (h) runs it batched
+            gpf, grows, gk2x = gpf_s, grows_s, out["K2x"][0]
+        del out
+    g = gpf.geom
+    log(f"(e) garbage bits, {len(GARBAGE_SEEDS)} seeds: K1, K2, K2x, K3, "
+        f"K2s returned ({time.perf_counter() - t0:.3f} s with the plain "
+        f"twins); K1 == plain K1, K2x == plain K2x, K3 == plain K3 on "
+        f"every seed; K2 and K2s in their shapes, max |diff| from plain "
+        f"{garbage_err} (reported)")
+
+    # Scan-byte mutations of a small stream with short final intervals
+    # (tests/test_robustness.py's fuzz, on the card): a mutation the host
+    # refuses (a marker hit, the segment count changed) is counted.
+    fuzz_label = "422 ri=5 16x48"
+    fuzz_data = vec[f"jpeg_{list(vec['labels']).index(fuzz_label)}"].tobytes()
+    fimg = exact_frame(fuzz_data)[0].image
+    foff, flen = fimg.scan_offset, len(fimg.scan_data)
+    rng = np.random.default_rng(9)
+    decoded, refused, fuzz_err = 0, 0, 0
+    for _ in range(FUZZ):
+        scan = bytearray(fuzz_data[foff:foff + flen])
+        for _ in range(int(rng.integers(1, 6))):
+            scan[int(rng.integers(0, flen))] = int(rng.integers(0, 256))
+        bad = fuzz_data[:foff] + bytes(scan) + fuzz_data[foff + flen:]
+        try:
+            fpf, _, out = against_plain(bad)
+        except CompegError:
+            refused += 1
+            continue
+        decoded += 1
+        require(exact_ok(out), "scan fuzz: K1, K2x or K3 differs from its "
+                "plain version")
+        errs = float_errors(out, fpf.geom)
+        fuzz_err = max(fuzz_err, *errs.values())
+        require(fuzz_err <= 1, f"scan fuzz: K2 or K2s outside +-1 of plain "
+                f"({errs})")
+    require(decoded >= FUZZ // 2, f"scan fuzz: only {decoded} of {FUZZ} "
+            "mutations decoded")
+    log(f"(e) scan fuzz on {fuzz_label}: {decoded} of {FUZZ} mutated "
+        f"streams decoded ({refused} refused by the host); K1, K2x, K3 == "
+        f"their plain twins, K2 and K2s max |diff| {fuzz_err} from plain "
+        f"(tolerance: exact; max 1)")
 
     # ---- (f) times -----------------------------------------------------------
     g = pf.geom
@@ -1029,7 +1100,8 @@ def main() -> int:
 
     log(json.dumps({
         "kernels": [
-            entry("entropy_kernel (K1)", "compeg_tpu/ops/entropy.py:440",
+            entry("fused_decode_kernel<kIdctNone, kOutCoefs> (K1)",
+                  "compeg_tpu/ops/entropy.py:440",
                   ("entropy",), k1_err, "K1",
                   staged_path_max_abs_err=staged_err,
                   staged_stage_ms=stage_ms),

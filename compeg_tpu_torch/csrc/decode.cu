@@ -1,17 +1,16 @@
 // The decode kernels of compeg_tpu_torch, for Hopper (sm_90a).
 //
-// entropy_kernel (K1) replaces the Pallas kernel entropy_decode
-// (compeg_tpu/ops/entropy.py:440, body _make_kernel :365): it writes every
-// restart segment's raw zigzag coefficients, [nseg, ri, dus, 64] int32.
-//
 // fused_decode_kernel<IDCT, OUT> replaces the Pallas kernels built from
 // _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA assembly after
-// them. One launch decodes a batch of same-geometry frames (the JAX package
-// concatenates their blocks along the grid, compeg_tpu/batch.py:71); here
-// the frame is the grid's second dimension. Phase 1, the entropy decode, is
-// the same in every mode; phase 2 (IDCT) and phase 3 (output) are chosen by
-// the template arguments:
+// them, and the entropy kernel entropy_decode (compeg_tpu/ops/entropy.py:440,
+// body _make_kernel :365). One launch decodes a batch of same-geometry
+// frames (the JAX package concatenates their blocks along the grid,
+// compeg_tpu/batch.py:71); here the frame is the grid's second dimension.
+// Phase 1, the entropy decode, is the same in every mode; phase 2 (IDCT)
+// and phase 3 (output) are chosen by the template arguments:
 //
+//   K1  <kIdctNone,   kOutCoefs>   entropy_decode: every restart segment's
+//       raw zigzag coefficients, [nseg, ri, dus, 64] int32
 //   K2  <kIdctFloat,  kOutRgba>    fused_decode_blocks (fused.py:419), default
 //       mode: dequant + f32 8x8 IDCT -> nearest upsampling, integer BT.601,
 //       packed RGBA written straight into the raster [H, W]
@@ -33,8 +32,8 @@
 // time is the entropy decode's: each thread decodes one restart segment
 // symbol by symbol, a chain of dependent shifts, compares and table loads,
 // and the 32 threads of a warp wait for the one with the most symbols in
-// every data unit. K1 is that and the stores of its 64 words per data unit.
-// In the fused kernels a block of 32 segments decodes with one warp while
+// every data unit. K1 is that and the stores of its 64 words per data unit
+// (66 MB at 4K). A block of 32 segments decodes with one warp while
 // its other warps wait, so what counts is how many blocks a multiprocessor
 // holds at once (their decoding warps run side by side), how short the
 // phases around the decode are, and how few instructions they execute: the
@@ -47,7 +46,10 @@
 //  * Phase 1: the block's rows and the Huffman tables come into shared
 //    memory by asynchronous copies started before anything else, so a bit
 //    reader's refill waits on shared memory, not on device memory; the bit
-//    window and DC predictors live in registers. Spreading the 32 decoding
+//    window and DC predictors live in registers. A symbol costs one
+//    first-level lookup unless its code is longer than LUT_BITS
+//    (csrc/entropy.cuh decode_symbol); a frame's distinct tables are packed
+//    once each, 1.3 KB a table. Spreading the 32 decoding
 //    threads over several warps made it slower (every warp then runs the
 //    whole instruction stream for a few lanes), so warp 0 decodes.
 //  * The tile: a block keeps its segments' coefficients in shared memory,
@@ -72,8 +74,10 @@
 //    80 integer operations per column or row and no operator loads. The
 //    eight lanes exchange columns for rows in registers, by warp shuffles
 //    (transpose8), so the 32-bit values between the passes never touch the
-//    tile. The scaled IDCT reads only the first 1, 5 or 25 zigzag
-//    coefficients.
+//    tile.
+//  * Phase 2, scaled: only the first 1, 5 or 25 zigzag coefficients are
+//    read, so only those are zeroed; a thread per data unit at k = 1 and 2,
+//    four lanes of four pixels at k = 4 (idct_scaled).
 //  * Phase 3, RGBA: the sample offsets of an MCU's pixels come from the
 //    host, a segment's place in the frame is worked out once per segment, a
 //    thread composes four neighbouring pixels and stores 16 bytes where the
@@ -85,6 +89,11 @@
 //    neighbouring MCUs, so a warp writes one run of a plane row. The units'
 //    places come from the host (p.unit_*, ops/fused.plane_offsets)
 //    (store_planes).
+//  * Phase 3, coefficients (K1): the decoded MCU of the 32 segments goes out
+//    from the tile in 16-byte stores, a warp writing one segment's run of
+//    dus * 256 bytes at a time (with restart interval 1 the block's 32
+//    segments are one run), and the tile is zeroed as it is read
+//    (store_coefs). Padding MCUs past a short final interval come out zero.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -96,7 +105,6 @@
 
 namespace {
 
-constexpr int K1_THREADS = 128;
 constexpr int K2_SEG_BITS = 5;
 constexpr int K2_SEGS = 1 << K2_SEG_BITS;  // segments per block: warp 0's lanes
 constexpr int MAX_DEVICES = 64;
@@ -123,8 +131,8 @@ struct SegmentPos {
   int mx[K2_SEGS];
 };
 
-enum IdctMode { kIdctFloat, kIdctInt, kIdctScaled };
-enum OutMode { kOutRgba, kOutPlanes };
+enum IdctMode { kIdctFloat, kIdctInt, kIdctScaled, kIdctNone };
+enum OutMode { kOutRgba, kOutPlanes, kOutCoefs };
 
 // The tile's element. AC coefficients take 16 bits (an AC value has at most
 // 15 magnitude bits) and the DC, whose predictor may wrap in 32 bits on
@@ -144,8 +152,8 @@ struct Tile {
   static constexpr int BLOCKS = 8;
 };
 
-// The fused kernels' outputs: the packed RGBA raster in [0], or one u8 plane
-// per component (null past the frame's components).
+// The fused kernels' outputs: the packed RGBA raster or K1's coefficients in
+// [0], or one u8 plane per component (null past the frame's components).
 struct Outputs {
   void* ptr[3];
 };
@@ -164,31 +172,6 @@ __device__ __forceinline__ void copy_async(int* dst, const int* src, int n) {
   for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x)
     __pipeline_memcpy_async(dst + i, src + i, 4);
   __pipeline_commit();
-}
-
-__global__ void __launch_bounds__(K1_THREADS)
-entropy_kernel(const uint32_t* __restrict__ rows, const int* __restrict__ tables,
-               int* __restrict__ out, const DecodeParams p) {
-  __shared__ int tab[MAX_TABLE_INTS];
-  load_tables(tab, tables, p.ncomp * 2 * TAB_INTS);
-  __syncthreads();
-  const int seg = blockIdx.x * K1_THREADS + threadIdx.x;
-  if (seg >= p.nseg) return;
-  const int per_mcu = p.dus * 64;
-  int* seg_out = out + (size_t)seg * p.ri * per_mcu;
-  // Zero the segment's block first: padding MCUs past a short final
-  // interval stay zero, and decode_mcu stores only DC and nonzero AC.
-  int4* z4 = reinterpret_cast<int4*>(seg_out);
-  for (int i = 0; i < p.ri * per_mcu / 4; ++i) z4[i] = make_int4(0, 0, 0, 0);
-  const int nm = segment_mcus(p, seg);
-  BitReader<true> br;
-  br.init(rows + (size_t)seg * p.words, p.words);
-  int dp[3] = {0, 0, 0};
-  for (int m = 0; m < nm; ++m) {
-    int* mcu_out = seg_out + m * per_mcu;
-    decode_mcu(br, dp, tab, p,
-               [&](int d, int pos, int v) { mcu_out[d * 64 + pos] = v; });
-  }
 }
 
 // Phase 2, float: pixel q = sum_z op[d][z][q] * c[z] in f32 (FMA, z
@@ -276,34 +259,60 @@ __device__ __forceinline__ void idct_float(short* coef, const int* dc,
   }
 }
 
-// Phase 2, scaled: the same sum over the first zlen (1, 5 or 25) zigzag
-// positions for npx = k * k <= 16 pixels per data unit, a warp per unit, lane
-// q pixel q. op is lq_t [DUS, 64, npx].
+// Phase 2, scaled: pixel q of a data unit is the same sum over the first
+// zlen zigzag positions only (1, 5 or 25 for k = 1, 2, 4; the rest of the
+// k-point operator is zero), npx = k * k pixels. op is lq_t [DUS, 64, npx].
+// At k = 1 and 2 a thread takes a data unit (1 or 5 terms of 1 or 4
+// pixels, the four as one 16-byte operator row), at k = 4 four lanes take
+// one, four pixels each (25 terms, a 16-byte piece of the row each). The
+// units go slot by slot as in idct_float, so a warp's lanes read one
+// operator's rows. Zero coefficients are not skipped: fmaf(w, 0.f, acc) ==
+// acc for finite w and acc, up to the sign of a zero, which + 128.5f
+// erases, so each pixel's chain over z ascending gives the sparse chain's
+// bits.
+__device__ __forceinline__ short scaled_px(float acc) {
+  return (short)fminf(fmaxf(acc + 128.5f, 0.f), 255.f);
+}
+
+template <int K>
 __device__ __forceinline__ void idct_scaled(short* coef, const int* dc,
                                             const float* __restrict__ op,
                                             const DecodeParams& p,
                                             const SegmentPos& pos) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int npx = p.blk * p.blk;
-  const int zlen = p.zlen;
-  for (int t = warp; t < K2_SEGS * p.dus; t += blockDim.x / 32) {
-    const int d = t >> K2_SEG_BITS, sl = t & (K2_SEGS - 1);
-    if (pos.my[sl] < 0) continue;  // warp-uniform
-    short* c = coef + sl * tile_stride(p.dus, 2) + d * 64;
-    const float* opd = op + (size_t)d * 64 * npx;
-    const int c0 = lane == 0 ? dc[sl * p.dus + d] : c[lane];
-    unsigned m0 = __ballot_sync(0xFFFFFFFFu, c0 != 0);
-    if (zlen < 32) m0 &= (1u << zlen) - 1u;
-    float acc = 0.f;
-    while (m0) {  // warp-uniform: the nonzero positions, z ascending
-      const int z = __ffs(m0) - 1;
-      m0 &= m0 - 1;
-      const float f = (float)__shfl_sync(0xFFFFFFFFu, c0, z);
-      if (lane < npx) acc = fmaf(__ldg(opd + z * npx + lane), f, acc);
+  constexpr int NPX = K * K, ZLEN = K == 1 ? 1 : K == 2 ? 5 : 25;
+  constexpr int LANES = K == 4 ? 4 : 1;  // lanes per data unit
+  const int stride = tile_stride(p.dus, 2);
+  const int l = threadIdx.x & (LANES - 1);
+  // The trip count is the same for every thread (32 * dus units, a whole
+  // number of passes), so the four lanes of a unit all reach __syncwarp.
+  for (int u = threadIdx.x / LANES; u < K2_SEGS * p.dus;
+       u += blockDim.x / LANES) {
+    const int d = u >> K2_SEG_BITS, sl = u & (K2_SEGS - 1);
+    const bool live = pos.my[sl] >= 0;  // else the tile holds no MCU of it
+    short* c = coef + sl * stride + d * 64;
+    const float f0 = (float)dc[sl * p.dus + d];
+    if constexpr (K == 1) {
+      if (live) c[0] = scaled_px(fmaf(__ldg(op + d * 64), f0, 0.f));
+    } else {
+      const float4* o =
+          reinterpret_cast<const float4*>(op + (size_t)d * 64 * NPX) + l;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int z = 0; z < ZLEN; ++z) {
+        const float f = z == 0 ? f0 : (float)c[z];
+        const float4 w = __ldg(o + z * (NPX / 4));
+        acc.x = fmaf(w.x, f, acc.x);
+        acc.y = fmaf(w.y, f, acc.y);
+        acc.z = fmaf(w.z, f, acc.z);
+        acc.w = fmaf(w.w, f, acc.w);
+      }
+      if (LANES > 1) __syncwarp();  // the unit's coefficients are read
+      if (live) {
+        short2* px = reinterpret_cast<short2*>(c + 4 * l);
+        px[0] = make_short2(scaled_px(acc.x), scaled_px(acc.y));
+        px[1] = make_short2(scaled_px(acc.z), scaled_px(acc.w));
+      }
     }
-    __syncwarp();
-    if (lane < npx) c[lane] = (short)fminf(fmaxf(acc + 128.5f, 0.f), 255.f);
   }
 }
 
@@ -537,6 +546,60 @@ __device__ __forceinline__ void store_planes(const short* coef,
   }
 }
 
+// Phase 3, coefficients (K1): MCU m of the block's segments, [dus][64]
+// int32 each, to out[((seg * ri) + m) * dus * 64]. A warp takes a segment,
+// a lane four neighbouring coefficients: two words of the tile, sign-
+// extended, stored as 16 bytes, so the warp writes the segment's dus * 256
+// bytes in one run; the DC comes from dc_s. The lane zeroes the two words
+// as it reads them, which leaves the tile zeroed for the next MCU. A
+// segment with no MCU m (past a short final interval) writes zeros.
+__device__ __forceinline__ void store_coefs(short* coef, const int* dc,
+                                            int* out, const DecodeParams& p,
+                                            const SegmentPos& pos, int seg0,
+                                            int m) {
+  const int lane = threadIdx.x & 31;
+  const int stride = tile_stride(p.dus, 2);
+  const int segs = min(K2_SEGS, p.nseg - seg0);
+  for (int sl = threadIdx.x >> 5; sl < segs; sl += blockDim.x >> 5) {
+    const bool live = pos.my[sl] >= 0;
+    uint32_t* c = reinterpret_cast<uint32_t*>(coef + sl * stride);
+    int4* dst = reinterpret_cast<int4*>(
+        out + ((size_t)(seg0 + sl) * p.ri + m) * p.dus * 64);
+    for (int q = lane; q < p.dus * 16; q += 32) {
+      const uint32_t a = c[2 * q], b = c[2 * q + 1];
+      c[2 * q] = 0;
+      c[2 * q + 1] = 0;
+      int4 v = make_int4((short)(a & 0xFFFF), (short)(a >> 16),
+                         (short)(b & 0xFFFF), (short)(b >> 16));
+      if ((q & 15) == 0) v.x = live ? dc[sl * p.dus + (q >> 4)] : 0;
+      dst[q] = v;
+    }
+  }
+}
+
+// Zero what the next MCU's IDCT reads of the tile and the decode does not
+// write. Every mode but the scaled one reads whole data units: the whole
+// tile, 16 bytes a store (its length, 32 strides, is a whole number of
+// them). The scaled IDCT reads positions 1 .. zlen - 1 (position 0 is the
+// DC, read from dc_s): the words that hold them, none at k = 1.
+template <int IDCT>
+__device__ __forceinline__ void zero_tile(short* coef, int tile_words,
+                                          const DecodeParams& p) {
+  if (IDCT == kIdctScaled) {
+    const int nz = p.zlen > 1 ? (p.zlen + 1) / 2 : 0;
+    const int half = tile_stride(p.dus, 2) / 2;  // a segment's words
+    uint32_t* w = reinterpret_cast<uint32_t*>(coef);
+    for (int u = threadIdx.x; u < K2_SEGS * p.dus; u += blockDim.x) {
+      uint32_t* unit = w + (u & (K2_SEGS - 1)) * half + (u >> K2_SEG_BITS) * 32;
+      for (int i = 0; i < nz; ++i) unit[i] = 0;
+    }
+  } else {
+    uint4* tile4 = reinterpret_cast<uint4*>(coef);
+    for (int i = threadIdx.x; i < tile_words / 4; i += blockDim.x)
+      tile4[i] = make_uint4(0, 0, 0, 0);
+  }
+}
+
 template <int IDCT, int OUT>
 __global__ void __launch_bounds__(Tile<IDCT>::THREADS, Tile<IDCT>::BLOCKS)
 fused_decode_kernel(const uint32_t* __restrict__ rows,
@@ -544,10 +607,11 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
                     const Outputs outs, const DecodeParams p) {
   extern __shared__ __align__(16) int smem[];
   using T = typename Tile<IDCT>::T;
-  int* tab = smem;
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  const int tab_words = p.ntables * TAB_WORDS;  // a multiple of 4
   // [K2_SEGS][tile_stride]: a segment's [dus][64] coefficients, its pixels
   // after the IDCT; the DC values lie in dc_s.
-  T* coef = reinterpret_cast<T*>(smem + MAX_TABLE_INTS);
+  T* coef = reinterpret_cast<T*>(smem + tab_words);
   const int stride = tile_stride(p.dus, sizeof(T));
   const int tile_words = K2_SEGS * stride * (int)sizeof(T) / 4;
   __shared__ int dc_s[K2_SEGS * 6];
@@ -565,12 +629,12 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   // The block's rows lie one after the other: bring them, then the tables,
   // into shared memory while the block sets itself up, so that the bit
   // readers' refills do not wait on device memory.
-  int* row_cache = smem + MAX_TABLE_INTS + tile_words;
+  int* row_cache = smem + tab_words + tile_words;
   const bool cached = row_cache_words(p.words) > 0;
   if (cached)
     copy_async(row_cache, reinterpret_cast<const int*>(rows) + (size_t)seg0 * p.words,
                min(K2_SEGS, p.nseg - seg0) * p.words);
-  copy_async(tab, tables, p.ncomp * 2 * TAB_INTS);
+  copy_async(smem, tables, tab_words);
   if (IDCT == kIdctInt) {
     load_tables(qz_s, static_cast<const int*>(op), p.dus * 64);
     for (int i = threadIdx.x; i < 64; i += blockDim.x) zz_s[i] = int_idct::kZigzag[i];
@@ -583,35 +647,36 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
       out.ptr[c] = static_cast<uint8_t*>(out.ptr[c]) +
                    frame * (height_mcus * 8 * p.comp_v[c]) *
                        ((size_t)p.width_mcus * 8 * p.comp_h[c]);
-  } else {
+  } else if (OUT == kOutRgba) {
     out.ptr[0] = static_cast<uint32_t*>(out.ptr[0]) +
                  frame * p.height * (size_t)p.width;
   }
   // Segment counts only shrink at the frame's end, so the block's first
-  // segment has the most MCUs.
-  const int m_end = segment_mcus(p, seg0);
+  // segment has the most MCUs; K1 writes all ri MCUs of every segment, the
+  // padding ones zero, even where a short segment is the block's first.
+  const int m_end = OUT == kOutCoefs ? p.ri : segment_mcus(p, seg0);
 
   // Phase-1 state of the segment this thread decodes: the block's segment
   // `slot`, or none (slot < 0) past warp 0.
   const int slot = tid < K2_SEGS ? tid : -1;
   const int my_seg = seg0 + slot;
   const int my_nm = slot >= 0 ? segment_mcus(p, my_seg) : 0;
-  BitReader<false> br;
+  BitReader br;
   if (my_nm > 0)
     br.init(cached ? reinterpret_cast<const uint32_t*>(row_cache) + slot * p.words
                    : rows + (size_t)my_seg * p.words,
             p.words);
   int dp[3] = {0, 0, 0};
 
+  // decode_mcu stores only DC and nonzero AC, so the tile is zeroed before
+  // each MCU: here once for K1, whose store zeroes what it read, and at the
+  // top of each pass for the others, whose IDCT writes pixels over it.
+  if (OUT == kOutCoefs) zero_tile<IDCT>(coef, tile_words, p);
   for (int m = 0; m < m_end; ++m) {
-    // decode_mcu stores only DC and nonzero AC: zero the tile, 16 bytes a
-    // store (its length, 32 strides, is a whole number of them).
-    uint4* tile4 = reinterpret_cast<uint4*>(coef);
-    for (int i = tid; i < tile_words / 4; i += blockDim.x)
-      tile4[i] = make_uint4(0, 0, 0, 0);
-    if (slot >= 0) {
+    if (OUT != kOutCoefs) zero_tile<IDCT>(coef, tile_words, p);
+    if (slot >= 0) {  // K1 needs only whether the segment has MCU m
       const int mcu = my_seg * p.ri + m;
-      const int row = mcu / p.width_mcus;
+      const int row = OUT == kOutCoefs ? 0 : mcu / p.width_mcus;
       pos.my[slot] = m < my_nm ? row : -1;
       pos.mx[slot] = mcu - row * p.width_mcus;
     }
@@ -632,35 +697,46 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
     __syncthreads();
 
     // ---- phase 2: dequant + IDCT, pixels over the coefficients -----------
-    if constexpr (IDCT == kIdctInt) {
-      idct_int(coef, dc_s, qz_s, zz_s, p);
-    } else if constexpr (IDCT == kIdctScaled) {
-      idct_scaled(coef, dc_s, static_cast<const float*>(op), p, pos);
-    } else {
-      idct_float(coef, dc_s, static_cast<const float*>(op), p, pos);
+    if constexpr (IDCT != kIdctNone) {
+      const float* fop = static_cast<const float*>(op);
+      if constexpr (IDCT == kIdctInt) {
+        idct_int(coef, dc_s, qz_s, zz_s, p);
+      } else if constexpr (IDCT == kIdctScaled) {
+        if (p.blk == 1)
+          idct_scaled<1>(coef, dc_s, fop, p, pos);
+        else if (p.blk == 2)
+          idct_scaled<2>(coef, dc_s, fop, p, pos);
+        else
+          idct_scaled<4>(coef, dc_s, fop, p, pos);
+      } else {
+        idct_float(coef, dc_s, fop, p, pos);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     // ---- phase 3: output --------------------------------------------------
-    if (OUT == kOutPlanes) {
+    if (OUT == kOutCoefs) {
+      store_coefs(coef, dc_s, static_cast<int*>(out.ptr[0]), p, pos, seg0, m);
+    } else if (OUT == kOutPlanes) {
       store_planes(coef, out, p, pos);
     } else {
       composite_rgba(coef, static_cast<uint32_t*>(out.ptr[0]), p, pos);
     }
-    __syncthreads();  // the next MCU's zeroing overwrites these pixels
+    __syncthreads();  // the next MCU's zeroing and decode overwrite the tile
   }
 }
 
 // Bytes of dynamic shared memory a block takes: the tables, the tile of
 // elem_bytes elements and the rows.
 inline size_t fused_smem_bytes(const DecodeParams& p, int elem_bytes) {
-  return sizeof(int) * (MAX_TABLE_INTS + row_cache_words(p.words)) +
+  return sizeof(int) * (p.ntables * TAB_WORDS + row_cache_words(p.words)) +
          (size_t)K2_SEGS * tile_stride(p.dus, elem_bytes) * elem_bytes;
 }
 
 template <int IDCT, int OUT>
 int launch_fused(const void* rows, const void* tables, const void* op,
                  Outputs out, const DecodeParams* p, void* stream) {
+  if (p->ntables < 1 || p->ntables > MAX_TABLES) return (int)cudaErrorInvalidValue;
   if (p->nseg > 0 && p->frames > 0) {
     auto kernel = fused_decode_kernel<IDCT, OUT>;
     const size_t smem = fused_smem_bytes(*p, sizeof(typename Tile<IDCT>::T));
@@ -692,14 +768,11 @@ const char* compeg_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// K1: out = [nseg, ri, dus, 64] int32; one frame (p->frames == 1).
 int compeg_entropy_decode(const void* rows, const void* tables, void* out,
                           const DecodeParams* p, void* stream) {
-  if (p->nseg > 0) {
-    const int blocks = (p->nseg + K1_THREADS - 1) / K1_THREADS;
-    entropy_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)rows, (const int*)tables, (int*)out, *p);
-  }
-  return (int)cudaGetLastError();
+  return launch_fused<kIdctNone, kOutCoefs>(rows, tables, nullptr,
+                                            {{out, 0, 0}}, p, stream);
 }
 
 // K2: op = lq_t [dus, 64, 64] f32.

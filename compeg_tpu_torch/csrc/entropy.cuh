@@ -24,6 +24,21 @@
 //    block also ends at pos >= 63, so every thread terminates on any bits;
 //  * under zrl17 (Decoder(zrl_compat=True), the reference's semantics) a ZRL
 //    advances one position more, 17 instead of 16 (entropy.py:317-320).
+//
+// The symbol lookup. The compare loop above costs a load and a compare per
+// length, 15 of them for an AC table (max_len 16 on any real stream), and
+// the whole decode is bound by the instructions it issues. So a table
+// starts with a first-level lookup on the top LUT_BITS bits of the window,
+// one 16-bit entry (ln << 8 | value) per prefix, built on the host
+// (ops/entropy.py lookup_entries) exactly: limits[L] has zero low 16 - L
+// bits, so for L <= LUT_BITS the compare at level L, and with it ln and the
+// ordinal, is the same for every window with the prefix. Entry 0 is kept
+// for the prefixes whose codes are longer (or invalid, past the last code
+// of a table with max_len > LUT_BITS): every window there has
+// ln > LUT_BITS, so decode_long runs the compare loop from level
+// LUT_BITS + 1 only. The loop's limits and delta are 16 bits (delta mod
+// 2^16: the ordinal before the clip is never negative nor above 65535, so
+// its low 16 bits are the ordinal), the values 8 bits.
 #pragma once
 
 #include <cstdint>
@@ -67,17 +82,29 @@ struct DecodeParams {
   int unit_row[6];
   int unit_col[6];
   int plane_pitch[3];  // bytes per row of each component's plane
+  // The packed tables (pack_tables): ntables of them, the DC table of
+  // component c is table_of[2 * c], its AC table table_of[2 * c + 1].
+  int ntables;
+  int table_of[6];
 };
 
-// One Huffman table, packed as int32 by compeg_tpu_torch.ops.entropy:
-// limits[17], delta[17], max_len, num_values, values[256].
-constexpr int TAB_LIMITS = 0;
-constexpr int TAB_DELTA = 17;
-constexpr int TAB_MAX_LEN = 34;
-constexpr int TAB_NUM_VALUES = 35;
-constexpr int TAB_VALUES = 36;
-constexpr int TAB_INTS = 36 + 256;
-constexpr int MAX_TABLE_INTS = 3 * 2 * TAB_INTS;  // [comp][dc, ac][TAB_INTS]
+// One Huffman table as ops/entropy.py pack_tables lays it out, in 16-bit
+// halves: the first-level lookup lut[1 << LUT_BITS], limits[16] (levels
+// LUT_BITS + 1 .. 15 are read; clipped to 0xFFFF), delta[17]
+// (mod 2^16), max_len, num_values, then values[256] as bytes. A table is a
+// whole number of 16-byte pieces, so the next one and the tile after the
+// last stay aligned. A frame's tables are packed once each, however many
+// components share them (DecodeParams::table_of).
+constexpr int LUT_BITS = 9;
+constexpr int TAB_LUT = 0;
+constexpr int TAB_LIMITS = 1 << LUT_BITS;
+constexpr int TAB_DELTA = TAB_LIMITS + 16;
+constexpr int TAB_MAX_LEN = TAB_DELTA + 17;
+constexpr int TAB_NUM_VALUES = TAB_MAX_LEN + 1;
+constexpr int TAB_VALUES = TAB_NUM_VALUES + 2;  // in halves; 256 bytes
+constexpr int TAB_HALVES = (TAB_VALUES + 128 + 7) / 8 * 8;
+constexpr int TAB_WORDS = TAB_HALVES / 2;
+constexpr int MAX_TABLES = 6;  // a DC and an AC table for each of 3 components
 
 // MCUs segment `seg` holds: min(ri, total_mcus - seg * ri), 0 past the end.
 __device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg) {
@@ -86,9 +113,8 @@ __device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg) {
   return left < p.ri ? (int)left : p.ri;
 }
 
-// kLdg: the row lies in device memory and is read through the read-only
-// path; otherwise `row` may point into shared memory.
-template <bool kLdg>
+// `row` points into shared memory (the block's row cache) or, for rows too
+// long for it, into device memory.
 struct BitReader {
   const uint32_t* row;
   int last;       // index of the row's last word
@@ -109,7 +135,7 @@ struct BitReader {
   __device__ __forceinline__ void refill() {
     if (nbits < 32) {
       const uint32_t* at = row + (widx < last ? widx : last);
-      uint32_t w = kLdg ? __ldg(at) : *at;
+      const uint32_t w = *at;
       win |= (uint64_t)w << (32 - nbits);
       ++widx;
       nbits += 32;
@@ -123,19 +149,31 @@ __device__ __forceinline__ int extend(int v, int s) {
   return v < vt ? v - (1 << s) + 1 : v;
 }
 
+// The code length and value (ln << 8 | value) of a window whose prefix has
+// no first-level entry: ln > LUT_BITS, found by the compare loop from level
+// LUT_BITS + 1. The reference loop stops below max_len; counting the levels
+// from max_len on too (the last code's end, then 0xFFFF) adds to ln only
+// where the window is at max_len already, hence the min.
+__device__ __forceinline__ int decode_long(int c16, const uint16_t* tab) {
+  int ln = LUT_BITS + 1;
+#pragma unroll
+  for (int j = LUT_BITS + 1; j < 16; ++j) ln += c16 >= (int)tab[TAB_LIMITS + j];
+  ln = min(ln, (int)tab[TAB_MAX_LEN]);
+  const int k = min(((c16 >> (16 - ln)) + tab[TAB_DELTA + ln]) & 0xFFFF,
+                    (int)tab[TAB_NUM_VALUES] - 1);
+  return ln << 8 | reinterpret_cast<const uint8_t*>(tab + TAB_VALUES)[k];
+}
+
 // Decode one symbol with table `tab`; returns the symbol value and sets the
 // magnitude width `s` (DC: min(value, 15), AC: value & 15) and its raw bits.
 template <class Reader>
-__device__ __forceinline__ int decode_symbol(Reader& br, const int* tab,
+__device__ __forceinline__ int decode_symbol(Reader& br, const uint16_t* tab,
                                              bool dc, int& s, int& mag) {
   br.refill();
   const int c16 = (int)(br.win >> 48);
-  const int max_len = tab[TAB_MAX_LEN];
-  int ln = 1;
-  for (int j = 1; j < max_len; ++j) ln += c16 >= tab[TAB_LIMITS + j];
-  int k = (c16 >> (16 - ln)) + tab[TAB_DELTA + ln];
-  k = max(0, min(k, tab[TAB_NUM_VALUES] - 1));
-  const int value = tab[TAB_VALUES + k];
+  int e = tab[TAB_LUT + (c16 >> (16 - LUT_BITS))];
+  if (e == 0) e = decode_long(c16, tab);
+  const int ln = e >> 8, value = e & 0xFF;
   s = dc ? min(value, 15) : (value & 15);
   const int n = ln + s;  // 1..31 <= nbits - 1
   mag = s ? (int)((br.win >> (64 - n)) & ((1u << s) - 1u)) : 0;
@@ -150,12 +188,12 @@ __device__ __forceinline__ int decode_symbol(Reader& br, const int* tab,
 // `dp` holds the DC predictors, reset by the caller at segment start.
 template <class Reader, class Put>
 __device__ __forceinline__ void decode_mcu(Reader& br, int* dp,
-                                           const int* tables,
+                                           const uint16_t* tables,
                                            const DecodeParams& p, Put put) {
   for (int d = 0; d < p.dus; ++d) {
     const int comp = p.du_to_comp[d];
-    const int* dctab = tables + (comp * 2) * TAB_INTS;
-    const int* actab = dctab + TAB_INTS;
+    const uint16_t* dctab = tables + p.table_of[2 * comp] * TAB_HALVES;
+    const uint16_t* actab = tables + p.table_of[2 * comp + 1] * TAB_HALVES;
     int s, mag;
     decode_symbol(br, dctab, true, s, mag);
     // int32 predictor that wraps like the reference's on garbage input.

@@ -96,6 +96,8 @@ class DecodeParams(ctypes.Structure):
         ("unit_row", ctypes.c_int32 * 6),
         ("unit_col", ctypes.c_int32 * 6),
         ("plane_pitch", ctypes.c_int32 * 3),
+        ("ntables", ctypes.c_int32),
+        ("table_of", ctypes.c_int32 * 6),
     ]
 
 
@@ -109,7 +111,7 @@ class RelayoutParams(ctypes.Structure):
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
                 blk=8, zlen=64, frames=1, frame_rows=0,
-                composite=None, planes=None) -> DecodeParams:
+                composite=None, planes=None, table_of=None) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
     kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
     ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
@@ -119,7 +121,9 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
     kernels, ``planes`` the store units of
     :func:`compeg_tpu_torch.ops.fused.plane_offsets`, ``(du, pair, row,
     col)`` each, read by the planes kernels; the planes' pitches follow
-    ``width_mcus``."""
+    ``width_mcus``. ``table_of`` maps component ``c``'s DC and AC table to
+    rows ``table_of[2 * c]`` and ``table_of[2 * c + 1]`` of the packed
+    tables (``EntropyTables.table_of``); without it no kernel launches."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -145,6 +149,13 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
             p.unit_du[i], p.unit_pair[i], p.unit_row[i], p.unit_col[i] = unit
         for i, (h, _) in enumerate(samplings):
             p.plane_pitch[i] = width_mcus * 8 * h
+    if table_of is not None:
+        if (len(table_of) != 2 * len(samplings)
+                or sorted(set(table_of)) != list(range(max(table_of) + 1))):
+            raise ValueError(f"table_of {tuple(table_of)} does not map "
+                             f"{len(samplings)} components onto packed rows")
+        p.ntables = max(table_of) + 1
+        p.table_of[:len(table_of)] = table_of
     slot = 0
     for i, c in enumerate(du_to_comp):
         p.du_to_comp[i] = c

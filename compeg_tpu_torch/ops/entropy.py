@@ -14,25 +14,120 @@ int32; MCU ``m`` of segment ``s`` is frame MCU ``s * ri + m``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
 
-TAB_INTS = 17 + 17 + 2 + 256  # limits, delta, max_len, num_values, values
+LUT_BITS = 9  # window bits of the first-level lookup (csrc/entropy.cuh)
+
+
+def table_layout(lut_bits: int = LUT_BITS) -> dict:
+    """Offsets, in 16-bit halves, of one packed table (csrc/entropy.cuh,
+    under the same names): the first-level lookup, limits[16], delta[17],
+    max_len, num_values and the 256 byte-wide values, padded to 16 bytes."""
+    limits = 1 << lut_bits
+    delta = limits + 16
+    max_len = delta + 17
+    values = max_len + 3
+    halves = (values + 128 + 7) // 8 * 8
+    return {"LUT_BITS": lut_bits, "TAB_LUT": 0, "TAB_LIMITS": limits,
+            "TAB_DELTA": delta, "TAB_MAX_LEN": max_len,
+            "TAB_NUM_VALUES": max_len + 1, "TAB_VALUES": values,
+            "TAB_HALVES": halves, "TAB_WORDS": halves // 2}
+
+
+def compare_loop(c16, limits, delta, max_len: int, num_values: int):
+    """Code length and clipped ordinal of the 16-bit windows ``c16`` by the
+    compare loop of the reference kernel (and of :func:`_symbol`):
+    ``ln = 1 + #{j in 1..max_len-1 : c16 >= limits[j]}``, ``k = clip((c16 >>
+    (16 - ln)) + delta[ln], 0, num_values - 1)``. numpy int64 arrays."""
+    c16 = np.asarray(c16, np.int64)
+    lim = np.asarray(limits, np.int64)[1:max_len]
+    ln = 1 + (c16[:, None] >= lim[None, :]).sum(1)
+    k = (c16 >> (16 - ln)) + np.asarray(delta, np.int64)[ln]
+    return ln, np.clip(k, 0, num_values - 1)
+
+
+def lookup_entries(limits, delta, values, max_len: int, num_values: int,
+                   lut_bits: int = LUT_BITS) -> np.ndarray:
+    """The first-level lookup: for each ``lut_bits``-bit prefix ``p`` the
+    entry ``ln << 8 | value`` that every window starting with ``p`` decodes
+    to, or 0 where windows with that prefix need the compare loop.
+
+    ``limits[L]`` has zero low ``16 - L`` bits, so the compare at level
+    ``L`` is the same for all windows with the prefix while ``L <=
+    lut_bits``, and the compare-sum is monotone in the window: when the
+    prefix's lowest and highest windows give the same ``ln <= lut_bits``,
+    every window between them gives that ``ln`` and the same ordinal."""
+    p = np.arange(1 << lut_bits, dtype=np.int64)
+    lo = p << (16 - lut_bits)
+    ln_lo, k_lo = compare_loop(lo, limits, delta, max_len, num_values)
+    ln_hi, _ = compare_loop(lo | ((1 << (16 - lut_bits)) - 1), limits, delta,
+                            max_len, num_values)
+    exact = (ln_lo == ln_hi) & (ln_lo <= lut_bits)
+    entry = ln_lo << 8 | np.asarray(values, np.int64)[k_lo]
+    return np.where(exact, entry, 0).astype(np.uint16)
+
+
+@functools.lru_cache(maxsize=256)
+def _pack_table(key: Tuple, lut_bits: int) -> np.ndarray:
+    limits, delta, values, max_len, num_values = key
+    lay = table_layout(lut_bits)
+    h = np.zeros(lay["TAB_HALVES"], np.uint16)
+    h[:1 << lut_bits] = lookup_entries(limits, delta, values, max_len,
+                                       num_values, lut_bits)
+    at = lay["TAB_LIMITS"]
+    h[at:at + 16] = np.minimum(np.asarray(limits[:16], np.int64), 0xFFFF)
+    at = lay["TAB_DELTA"]
+    h[at:at + 17] = np.asarray(delta, np.int64) & 0xFFFF
+    h[lay["TAB_MAX_LEN"]] = max_len
+    h[lay["TAB_NUM_VALUES"]] = num_values
+    at = 2 * lay["TAB_VALUES"]
+    h.view(np.uint8)[at:at + 256] = values
+    h.flags.writeable = False
+    return h
+
+
+def pack_tables(tables: "EntropyTables", lut_bits: int = LUT_BITS
+                ) -> Tuple[Tuple[int, ...], torch.Tensor]:
+    """The kernels' form of ``tables``: ``(table_of, packed)``. ``packed``
+    is ``[T, TAB_WORDS]`` int32 on the tables' device, one row per distinct
+    table in the 16-bit layout of :func:`table_layout` (a component's two
+    tables are often another's); ``table_of[2 * c + cls]`` is the row of
+    component ``c``'s DC (``cls`` 0) or AC table."""
+    arrays = [t.cpu().numpy() for t in (tables.limits, tables.delta,
+                                        tables.values, tables.max_len,
+                                        tables.num_values)]
+    keys, table_of = [], []
+    for c in range(arrays[0].shape[0]):
+        for cls in (0, 1):
+            key = (tuple(arrays[0][c, cls].tolist()),
+                   tuple(arrays[1][c, cls].tolist()),
+                   tuple(arrays[2][c, cls].tolist()),
+                   int(arrays[3][c, cls]), int(arrays[4][c, cls]))
+            if key not in keys:
+                keys.append(key)
+            table_of.append(keys.index(key))
+    halves = np.stack([_pack_table(k, lut_bits) for k in keys])
+    packed = torch.from_numpy(halves.view(np.int32).copy())
+    return tuple(table_of), packed.to(tables.limits.device)
 
 
 @dataclass
 class EntropyTables:
     """Per-component DC and AC Huffman tables as int32 tensors on one
-    device; index ``[comp, 0]`` is the DC table, ``[comp, 1]`` the AC one.
+    device; index ``[comp, 0]`` is the DC table, ``[comp, 1]`` the AC one
+    (what the plain twin reads).
 
-    ``packed`` is the kernel's form, ``[C, 2, TAB_INTS]``: limits, delta,
-    max_len, num_values, values (csrc/entropy.cuh). ``zrl17`` selects the
-    reference's ZRL semantics (advance 17, ``Decoder(zrl_compat=True)``),
-    which the JAX package likewise carries in its ``EntropyPlan``."""
+    ``packed`` and ``table_of`` are the kernels' form (:func:`pack_tables`).
+    ``zrl17`` selects the reference's ZRL semantics (advance 17,
+    ``Decoder(zrl_compat=True)``), which the JAX package likewise carries in
+    its ``EntropyPlan``."""
 
     limits: torch.Tensor  # [C, 2, 17]
     delta: torch.Tensor  # [C, 2, 17]
@@ -41,13 +136,10 @@ class EntropyTables:
     num_values: torch.Tensor  # [C, 2]
     zrl17: bool = False
     packed: torch.Tensor = field(init=False, repr=False)
+    table_of: Tuple[int, ...] = field(init=False)
 
     def __post_init__(self):
-        self.packed = torch.cat(
-            [self.limits, self.delta, self.max_len[..., None],
-             self.num_values[..., None], self.values],
-            dim=-1,
-        ).contiguous()
+        self.table_of, self.packed = pack_tables(self)
 
     @property
     def device(self) -> torch.device:
@@ -127,11 +219,11 @@ def entropy_decode(rows: torch.Tensor, nseg: int, tables: EntropyTables,
         raise ValueError(f"unsupported device {rows.device}")
     out = torch.empty((nseg, ri, len(du_to_comp), 64), dtype=torch.int32,
                       device=rows.device)
-    # K1 reads only the table count from the samplings.
+    # K1 reads only the component count from the samplings.
     ncomp = tables.limits.shape[0]
     params = _build.make_params(nseg, rows.shape[1], ri, total_mcus,
                                 du_to_comp, samplings=[(1, 1)] * ncomp,
-                                zrl17=tables.zrl17)
+                                zrl17=tables.zrl17, table_of=tables.table_of)
     _build.launch("compeg_entropy_decode", rows, tables.packed, out,
                   params=params)
     _build.LAUNCHES["entropy"] += 1

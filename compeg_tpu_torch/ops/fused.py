@@ -149,6 +149,7 @@ def _params(rows, nseg, tables, geom, blk=8):
         frame_rows=rows.shape[-2],
         composite=composite_offsets(tuple(map(tuple, geom.samplings)), blk),
         planes=plane_offsets(tuple(map(tuple, geom.samplings))),
+        table_of=tables.table_of,
     )
 
 

@@ -10,7 +10,9 @@ golden's float and scaled RGB rows; small batches of frames that differ with
 golden's answer for every frame; and the digests of golden's 4K answers
 rolled by whole MCU rows, the answers of :func:`rotate_restart_segments`'s
 frames. tests/test_torch_smoke_vectors.py writes it and checks it against
-golden.
+golden. :func:`garbage_scan` makes frames of random entropy bits from a
+stream, for checks that every kernel terminates and agrees with its plain
+version on them.
 """
 
 from __future__ import annotations
@@ -59,3 +61,18 @@ def rotate_restart_segments(data: bytes, scan_offset: int, scan_len: int,
     cut = int(rst[segments - 1]) + 2
     body = (pieces[cut:] + pieces[:cut])[:-2]
     return data[:scan_offset] + body + data[scan_offset + scan_len:]
+
+
+def garbage_scan(data: bytes, scan_offset: int, scan_len: int,
+                 seed: int) -> bytes:
+    """``data`` with every byte of its scan replaced by a random one from
+    ``seed`` except each 0xFF and the byte after it (restart markers and
+    stuffing), so the frame keeps its segments and their count while their
+    entropy bits are garbage."""
+    scan = np.frombuffer(data, np.uint8, scan_len, scan_offset).copy()
+    keep = scan == 0xFF
+    keep[1:] |= keep[:-1]
+    noise = np.random.default_rng(seed).integers(0, 255, scan.size,
+                                                 dtype=np.uint8)
+    scan[~keep] = noise[~keep]
+    return data[:scan_offset] + scan.tobytes() + data[scan_offset + scan_len:]

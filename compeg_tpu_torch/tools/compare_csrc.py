@@ -12,9 +12,14 @@ The package's own ``compeg_tpu_torch/csrc`` is added last under the name
 ``build/compeg_tpu_torch/`` and bound with ctypes; the package's wrappers
 are not used, so a tree is driven through its C entry points with the
 package's launch parameters (a tree that knows fewer parameter fields reads
-the ones it knows: new fields are only ever added at the end).
+the ones it knows: new fields are only ever added at the end) and the
+Huffman tables in the layout it reads: ``ops/entropy.pack_tables`` at the
+tree's own ``LUT_BITS`` (csrc/entropy.cuh), or, for a tree that has none,
+the int32 ``[C, 2, 292]`` block of the kernels before the first-level
+lookup (:func:`legacy_packed`).
 
-On ``bench_assets/bench4k.jpg`` and the small streams of
+On ``bench_assets/bench4k.jpg``, the same frame with garbage entropy bits
+(``testdata.garbage_scan``, seed 5) and the small streams of
 ``testdata/smoke.npz`` every fused kernel (K2, K2x, K3 integer and float,
 K2s at k = 1, 2, 4), K1 and the relayout copy and spread of every tree must
 give the first tree's output bit for bit; a difference is reported with its
@@ -38,15 +43,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from .. import testdata
+from ..metadata import analyze
 from ..ops import _build
+from ..ops import entropy as E
 from ..ops import fused as F
 from ..ops import idct as D
 from ..ops import relayout as R
@@ -70,6 +78,27 @@ def ptxas_report(csrc: str) -> str:
     return "\n".join(keep) if res.returncode == 0 else res.stderr
 
 
+def tree_lut_bits(csrc: str) -> Optional[int]:
+    """The first-level lookup's window bits of the tree ``csrc`` (its
+    entropy.cuh's ``LUT_BITS``), None for a tree without the lookup."""
+    path = os.path.join(csrc, "entropy.cuh")
+    text = open(path).read() if os.path.exists(path) else ""
+    found = re.search(r"constexpr int LUT_BITS = (\d+);", text)
+    return int(found[1]) if found else None
+
+
+def legacy_packed(tables: E.EntropyTables) -> torch.Tensor:
+    """The tables as the kernels before the first-level lookup read them:
+    ``[C, 2, 292]`` int32, limits[17], delta[17], max_len, num_values,
+    values[256] of each component's DC and AC table."""
+    return torch.cat([tables.limits, tables.delta, tables.max_len[..., None],
+                      tables.num_values[..., None], tables.values],
+                     dim=-1).contiguous()
+
+
+LAYOUT: Dict[object, Optional[int]] = {}  # library -> its tree's LUT_BITS
+
+
 def frame_calls(data: bytes, device) -> Dict[str, Callable]:
     """For one JPEG, ``name -> fn(lib)`` that launches that kernel of
     library ``lib`` and returns its outputs (a tuple of tensors)."""
@@ -77,6 +106,14 @@ def frame_calls(data: bytes, device) -> Dict[str, Callable]:
     pf = dec.prepare(data)
     rows = dec.upload(pf)
     g, nseg, tables = pf.geom, pf.nseg, pf.tables
+    packs = {}
+
+    def packed(lib):
+        bits = LAYOUT.get(lib, E.LUT_BITS)
+        if bits not in packs:
+            packs[bits] = (legacy_packed(tables) if bits is None
+                           else E.pack_tables(tables, bits)[1])
+        return packs[bits]
     qsl = D.qz_by_slot_array(pf.image)
     xdec = Decoder(device=device, exact_idct=True)
     qz = xdec.prepare(data).op
@@ -86,7 +123,7 @@ def frame_calls(data: bytes, device) -> Dict[str, Callable]:
         def call(lib, i=0):
             out = torch.empty(F._batched((geom.height, geom.width), src),
                               dtype=torch.int32, device=device)
-            _build.launch(entry, src, tables.packed, op, out, lib=lib,
+            _build.launch(entry, src, packed(lib), op, out, lib=lib,
                           params=F._params(src, nseg, tables, geom, blk))
             return (out,)
         return call
@@ -95,7 +132,7 @@ def frame_calls(data: bytes, device) -> Dict[str, Callable]:
         def call(lib, i=0):
             outs = [torch.empty(F._batched(s, src), dtype=torch.uint8,
                                 device=device) for s in F.plane_shapes(g)]
-            _build.launch(entry, src, tables.packed, op,
+            _build.launch(entry, src, packed(lib), op,
                           *(outs + [None] * (3 - len(outs))), lib=lib,
                           params=F._params(src, nseg, tables, g))
             return tuple(outs)
@@ -104,7 +141,7 @@ def frame_calls(data: bytes, device) -> Dict[str, Callable]:
     def k1(lib, i=0):
         out = torch.empty((nseg, g.ri, len(g.du_to_comp), 64),
                           dtype=torch.int32, device=device)
-        _build.launch("compeg_entropy_decode", rows, tables.packed, out,
+        _build.launch("compeg_entropy_decode", rows, packed(lib), out,
                       lib=lib, params=F._params(rows, nseg, tables, g))
         return (out,)
 
@@ -241,7 +278,9 @@ def main(argv=None) -> int:
         if args.ptxas:
             print(f"--- {name}: ptxas\n{ptxas_report(csrc)}", flush=True)
         libs.append(_build.load(os.path.abspath(csrc)))
-        print(f"built {name} from {csrc}", flush=True)
+        LAYOUT[libs[-1]] = tree_lut_bits(csrc)
+        print(f"built {name} from {csrc} (tables: LUT_BITS "
+              f"{LAYOUT[libs[-1]]})", flush=True)
     names = [n for n, _ in trees]
     bad = []
 
@@ -266,7 +305,15 @@ def main(argv=None) -> int:
                     check(f"{label} {kname}", call)
         print(f"small streams: {len(vec['labels'])} compared", flush=True)
         with open(BENCH, "rb") as f:
-            calls4k = frame_calls(f.read(), device)
+            data4k = f.read()
+        img = analyze(data4k)
+        garbage = testdata.garbage_scan(data4k, img.scan_offset,
+                                        len(img.scan_data), 5)
+        for kname, call in frame_calls(garbage, device).items():
+            if not kname.startswith("_"):
+                check(f"4K garbage bits {kname}", call)
+        print("4K garbage bits: compared", flush=True)
+        calls4k = frame_calls(data4k, device)
         batch = calls4k.pop("_batch")(FRAMES)
     if args.kernels != "decode":
         rl = relayout_calls(device)

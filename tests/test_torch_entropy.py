@@ -119,4 +119,7 @@ def test_tables_from_plan_equal_tables_from_image(kind, test_image):
     a, b = E.tables_from_plan(plan), E.tables_from_image(img)
     for name in ("limits", "delta", "values", "max_len", "num_values", "packed"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
-    assert tuple(a.packed.shape) == (len(img.components), 2, E.TAB_INTS)
+    assert a.table_of == b.table_of
+    assert len(a.table_of) == 2 * len(img.components)
+    assert tuple(a.packed.shape) == (max(a.table_of) + 1,
+                                     E.table_layout()["TAB_WORDS"])

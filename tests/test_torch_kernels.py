@@ -165,6 +165,62 @@ def test_k2s_within_one_of_plain_and_golden(cuda, sampling, ri, k,
     assert np.abs(got - gold).max() <= 1
 
 
+# (sampling, ri, h, w): segment counts of 32 j + 1 whose last, short
+# interval is a block's first segment (4:2:2 MCUs of 16 x 8: 65 MCUs at
+# ri 2, 162 at ri 5), one where it is not (121 MCUs at ri 3, 41 segments),
+# 27 segments of 4:2:0 at ri 1, and one segment a frame (no restart
+# interval: a row longer than the row cache's 64 words).
+K1_CASES = [("422", 2, 40, 208), ("422", 5, 72, 288), ("422", 3, 88, 176),
+            ("420", 1, 40, 144), ("422", None, 24, 40), ("gray", None, 24, 40)]
+
+
+@pytest.mark.parametrize("sampling,ri,h,w", K1_CASES)
+def test_k1_writes_every_mcu_and_zero_padding(cuda, sampling, ri, h, w,
+                                              test_image):
+    """K1 into an output filled with -7 first: every element is written,
+    the MCUs past a short final interval with zeros, and the rest equals the
+    plain K1 and golden's coefficients."""
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=h, w=w)
+    g = pf.geom
+    out = torch.full((pf.nseg, g.ri, len(g.du_to_comp), 64), -7,
+                     dtype=torch.int32, device=cuda)
+    _build.launch("compeg_entropy_decode", rows, pf.tables.packed, out,
+                  params=F._params(rows, pf.nseg, pf.tables, g))
+    torch.cuda.synchronize()
+    args = (rows, pf.nseg, pf.tables, g.ri, g.total_mcus, g.du_to_comp)
+    assert torch.equal(out, E.entropy_decode_reference(*args))
+    short = g.total_mcus - (pf.nseg - 1) * g.ri
+    assert (out[-1, short:] == 0).all()
+    if ri is None:
+        assert rows.shape[1] > 64
+    else:
+        assert pf.nseg % 32 != 0
+        assert short < g.ri or ri == 1
+    assert np.array_equal(
+        E.coefficients_natural_order(out, g.total_mcus).cpu().numpy(),
+        golden.decode_coefficients(pf.image, dequant=False))
+    got = counted("entropy", E.entropy_decode, *args)
+    assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("sampling,h,w", [("420", 18, 38), ("422", 18, 38),
+                                          ("444", 17, 37), ("411", 18, 38)])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_k2s_on_ragged_rasters(cuda, sampling, h, w, k, test_image):
+    """K2s where neither side is a whole number of MCUs, against the plain
+    K2s and golden within 1."""
+    data, pf, rows = prepared(cuda, sampling, 1, test_image, h=h, w=w)
+    lq_k = D.scaled_operators(D.qz_by_slot_array(pf.image), k, device=cuda)
+    args = (rows, pf.nseg, pf.tables, lq_k, pf.geom, k)
+    got = as_rgb(counted("scaled", F.fused_decode_scaled, *args)).astype(int)
+    want = as_rgb(F.fused_decode_scaled_reference(*args))
+    gold = golden.decode_rgb(data, scale_blocks=k)
+    assert got.shape == want.shape == gold.shape == (-(-h * k // 8),
+                                                     -(-w * k // 8), 3)
+    assert np.abs(got - want).max() <= 1
+    assert np.abs(got - gold).max() <= 1
+
+
 @pytest.mark.parametrize("w", [36, 38, 40, 129])
 @pytest.mark.parametrize("sampling", ["422", "420", "411", "gray"])
 def test_rgba_store_at_whole_and_ragged_quads(cuda, sampling, w, test_image):
