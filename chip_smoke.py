@@ -21,10 +21,11 @@ is another picture) through BatchDecoder on K2, K2x and K3, one launch per
 batch, and through StreamDecoder in order, against golden's stored answers
 and the single-frame decode. Then the four relayout kernels: the probe tool
 compeg_tpu_torch/tools/exp_relayout.py at the probes' shapes and on the 4K
-decode, each kernel against its plain version, and the copy and the
-interleave at aligned and misaligned pointers and ragged sizes, each on the
-kernel its route function names, timed beside torch's clone() and
-transpose(-1, -2).contiguous(). Any failure exits non-zero. The default
+decode, each kernel against its plain version, and the copy, the
+interleave and the swap and crop at aligned and misaligned pointers and
+ragged sizes, each on the kernel its route function names, timed beside
+torch's clone(), transpose(-1, -2).contiguous() and the swap's reshape,
+transpose and crop. Any failure exits non-zero. The default
 decode of the 4K frame must equal golden's byte for byte (its sha256), the
 small rasters must take both the
 16-byte and the word-wise store of the RGBA kernels and the 16-byte, 8-byte
@@ -1033,12 +1034,47 @@ def main() -> int:
                 lambda i: R.relayout_interleave(view(bases[i % 2])), REPS),
             exp_relayout.cuda_ms(
                 lambda i: view(bases[i % 2]).transpose(-1, -2).contiguous(),
-                REPS))
+                REPS),
+            2 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3, route)
         log(f"(i) the interleave, {name} ({route} kernel, {a.numel() * 4} "
             f"B): == its plain version; {interleave_ms[name][0]:.4f} ms, "
-            f"transpose(-1, -2).contiguous() {interleave_ms[name][1]:.4f} ms "
-            f"(medians of {REPS} bursts of {exp_relayout.BURST}) on {card}")
+            f"transpose(-1, -2).contiguous() {interleave_ms[name][1]:.4f} ms, "
+            f"bound {interleave_ms[name][2]:.4f} ms (medians of {REPS} "
+            f"bursts of {exp_relayout.BURST}) on {card}")
     del bases
+    # The swap and crop of the 4K slab on each route: the 16-byte kernel
+    # to the 4K raster, the word tile to rows of 3838 words (no whole
+    # vectors); each against its plain version and timed beside it, on two
+    # alternating slabs. Its bound counts the kept words only, read once and
+    # written once: neither route touches the rows and columns it crops.
+    slabs = [torch.randint(0, 1 << 24, (34, 64, 4096), dtype=torch.int32,
+                           device="cuda") for _ in range(2)]
+    swap_ms = {}
+    for name, width, want_route in (("4K [2160, 3840]", 3840, "vec"),
+                                    ("[2160, 3838]", 3838, "word")):
+        got, sw_counts = drive(
+            lambda: R.relayout_swap_crop(slabs[0], 16, 2160, width))
+        route = R.swap_crop_route(slabs[0].data_ptr(), got.data_ptr(), 16,
+                                  width)
+        err = int((got - R.relayout_swap_crop_reference(
+            slabs[0], 16, 2160, width)).abs().max())
+        rl_err["swap_crop"] = max(rl_err["swap_crop"], err)
+        require(route == want_route and sw_counts["swap_crop"] == 1
+                and err == 0,
+                f"the swap, {name}: route {route} (expected {want_route}), "
+                f"launches {sw_counts['swap_crop']}, max |diff| {err}")
+        swap_ms[name] = (
+            exp_relayout.cuda_ms(lambda i: R.relayout_swap_crop(
+                slabs[i % 2], 16, 2160, width), REPS),
+            exp_relayout.cuda_ms(lambda i: R.relayout_swap_crop_reference(
+                slabs[i % 2], 16, 2160, width), REPS),
+            2 * got.numel() * 4 / HBM_BYTES_PER_S * 1e3, route)
+        log(f"(i) the swap and crop, {name} ({route} kernel): == its plain "
+            f"version; {swap_ms[name][0]:.4f} ms, reshape + transpose + "
+            f"crop + contiguous() {swap_ms[name][1]:.4f} ms, bound "
+            f"{swap_ms[name][2]:.4f} ms (medians of {REPS} bursts of "
+            f"{exp_relayout.BURST}) on {card}")
+    del slabs
 
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
@@ -1126,12 +1162,15 @@ def main() -> int:
                   plain_ms_by_k={k: plain[f"K2s k={k}"] for k in SCALES},
                   bound_ms_by_k={k: bounds[f"K2s k={k}"]["bound_ms"]
                                  for k in SCALES}),
-            relayout_entry("relayout_interleave_kernel (P1)", "interleave",
+            relayout_entry("relayout_interleave_vec_kernel and "
+                           "relayout_word_tile_kernel (P1)", "interleave",
                            "tools/exp_interleave.py:135",
                            "P1 interleave + row stack",
-                           ms_and_transpose_ms=interleave_ms),
-            relayout_entry("relayout_swap_crop_kernel (P2)", "swap_crop",
-                           "tools/exp_swap_pallas.py:51", "P2 swap + crop"),
+                           ms_transpose_ms_bound_ms_route=interleave_ms),
+            relayout_entry("relayout_interleave_vec_kernel<Idx, true> and "
+                           "relayout_word_tile_kernel (P2)", "swap_crop",
+                           "tools/exp_swap_pallas.py:51", "P2 swap + crop",
+                           ms_library_ms_bound_ms_route=swap_ms),
             relayout_entry("relayout_stack_kernel (P3)", "stack",
                            "tools/exp_assembly2.py:51", "P3 sublane stack"),
             relayout_entry("relayout_spread_merge_kernel (P4)",

@@ -2,17 +2,20 @@
 // four relayout probes of the JAX package's tools/ compute, one kernel per
 // distinct function. All move u32 words and do no arithmetic.
 //
-//   relayout_interleave_kernel   replaces tools/exp_interleave.py:134-155
+//   the interleave (relayout_interleave_vec_kernel<Idx, false> and
+//       relayout_word_tile_kernel) replaces tools/exp_interleave.py:134-155
 //       (pallas_call_raster, pallas_call_1; ref_interleave :158) and the
 //       strided-store and full where-interleave constructs of
 //       tools/exp_mosaic_bisect.py:80-100: the minor transpose
 //       out[n, l, x] = in[n, x, l]. The raster form's row stacking
 //       (out[g, s*R + r, l*X + x], stack_rows_kernel :104) is the same
 //       memory, so it is the wrapper's choice of output shape.
-//   relayout_swap_crop_kernel    replaces tools/exp_swap_pallas.py:35-66
+//   the swap and crop (relayout_interleave_vec_kernel<Idx, true> and
+//       relayout_word_tile_kernel) replaces tools/exp_swap_pallas.py:35-66
 //       (make_swap; pallas_call :51): the assembly's minor swap with the crop
 //       to [H, W] in the same pass,
-//       out[r*RT + t, c*L*X + l*X + x] = slab[r, t, c*X*L + x*L + l].
+//       out[r*RT + t, c*L*X + l*X + x] = slab[r, t, c*X*L + x*L + l], the
+//       interleave of every [X, L] tile of the slab into a pitched raster.
 //   relayout_stack_kernel        replaces tools/exp_assembly2.py:50-59
 //       (call_epi; stack_epilogue_kernel :38) and the sublane stack of
 //       exp_mosaic_bisect.py:73: out[g, x, sr, l] = in[g, sr, x, l], whole
@@ -33,25 +36,29 @@
 // What bounds them on the H100: bytes. Each kernel reads every input word
 // once and writes every output word once (67 MB for the 4K raster's 33.5 MB).
 // What the design does about it: both sides of every copy are coalesced.
-// The interleave's tile follows X: for X = 4, 8, 16 or 32 a thread takes a
-// block of 4 x by 4 l, four 16-byte loads along l that are all in flight
-// before its first store, and writes the four transposed 16-byte vectors;
-// the lanes that share an l lie side by side, so a warp reads runs of 128
-// bytes and more and writes runs of 4 * X bytes, whole sectors on both
-// sides, with no shared memory and no barrier
-// (relayout_interleave_vec_kernel). The swap, and the interleave where
-// vectors do not fit, go through a 32 x 33 padded shared-memory tile: a warp
-// reads 32 consecutive l of one x, and the block writes the tile's output
-// range in memory order (runs of min(X, 32) words), the padding keeping the
-// transposed shared-memory reads free of bank conflicts. The stack moves
-// 16-byte vectors where the row length allows. The copy moves 16-byte
-// vectors with several loads of each thread in flight before its first
-// store, from a grid sized to the card, and the spread and merge write
-// 16-byte vectors; all three index in 32 bits when the sizes fit and divide
-// only where rows are strided or X is no power of two. The word-per-thread
-// kernels remain for pointers and lengths that vectors do not fit; the
-// wrapper picks by pointers, strides and lengths
-// (ops/relayout.spread_merge_route, interleave_route).
+// The interleave and the swap share two kernels, picked by the wrapper from
+// pointers, strides and lengths (ops/relayout.interleave_route,
+// swap_crop_route). For X = 4, 8, 16 or 32 and 16-byte aligned rows a
+// thread takes a block of 4 x by 4 l, four 16-byte loads along l that are
+// all in flight before its first store, and writes the four transposed
+// 16-byte vectors; the lanes that share an l lie side by side, so a warp
+// reads runs of 128 bytes and more and writes runs of 4 * X bytes, whole
+// sectors on both sides, with no shared memory and no barrier
+// (relayout_interleave_vec_kernel; the swap's pitched rows and crop are
+// whole vectors there). Everything else goes through the word tile
+// (relayout_word_tile_kernel): about 8 KB of whole matrices or of all X rows
+// of a run of lanes, so that the block is full whatever X is, its rows
+// loaded as the 16-byte chunks of memory they touch (words only at a row's
+// unaligned ends), several a thread in flight, each word put at its place in
+// the output span in shared memory, and the span stored in aligned 16-byte
+// vectors with words only at its ends, whatever the alignment of either
+// side. The stack moves 16-byte vectors where the row length allows. The
+// copy moves 16-byte vectors with several loads of each thread in flight
+// before its first store, from a grid sized to the card, and the spread and
+// merge write 16-byte vectors; all three index in 32 bits when the sizes fit
+// and divide only where rows are strided or X is no power of two. The
+// word-per-thread spread and merge remain for pointers and lengths that
+// vectors do not fit (ops/relayout.spread_merge_route).
 
 #include <cuda_runtime.h>
 
@@ -68,98 +75,232 @@ struct RelayoutParams {
   long long w;          // swap_crop: output columns kept (the row pitch)
   long long sr;         // stack: S * R rows that change places with x
   long long g;          // stack: groups
-  long long vec;        // spread_merge, interleave: the 16-byte kernels (the
-                        // wrapper's choice)
+  long long vec;        // spread_merge, interleave, swap_crop: the 16-byte
+                        // kernels (the wrapper's choice)
 };
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int TILE_ROWS = 8;  // block is (TILE, TILE_ROWS) threads
+inline unsigned blocks_of(long long total, int threads) {
+  return (unsigned)((total + threads - 1) / threads);
+}
 
-// Transpose the [X, L] matrix at `in` tile by tile; word (l, x) goes to
-// out_at(l, x), or nowhere when that is null. blockIdx.y numbers the tiles.
-template <class OutAt>
-__device__ __forceinline__ void transpose_tile(const uint32_t* __restrict__ in,
-                                               int X, int L, OutAt out_at) {
-  __shared__ uint32_t tile[TILE][TILE + 1];
-  const int tiles_l = (L + TILE - 1) / TILE;
-  const int x0 = (blockIdx.y / tiles_l) * TILE;
-  const int l0 = (blockIdx.y % tiles_l) * TILE;
-  for (int j = threadIdx.y; j < TILE; j += TILE_ROWS) {
-    const int x = x0 + j, l = l0 + threadIdx.x;
-    if (x < X && l < L) tile[j][threadIdx.x] = in[(size_t)x * L + l];
+// The word tile (P1's word route, P2's): for pointers, lengths and X that
+// 16-byte vectors of 4 x 4 blocks do not fit. A tile is Mt whole matrices,
+// or all X rows of a run of Lt lanes of one, or (X over WT_WORDS) a run of
+// rows of one lane; either way its output is one contiguous span of about
+// WT_WORDS words and at most WT_CAP. Blocks of WT_THREADS threads, a tile
+// each.
+constexpr int WT_THREADS = 128;
+constexpr int WT_WORDS = 2048;    // about 8 KB in and 8 KB out a block
+constexpr int WT_CAP = 2560;      // the most words a tile holds
+constexpr int WT_IN_FLIGHT = 5;   // 16-byte loads of a thread before its stores
+
+// Host-side plan of the word tile over a [rows, cols] grid of [X, L]
+// matrices: matrix (r, c) starts at in + (r * cols + c) * in_stride and is
+// written at out + r * pitch + c * L * X, columns at or past `keep` dropped.
+struct WordTilePlan {
+  long long rows, cols, in_stride, pitch, keep;
+  int X, L, xt, lt, mt, tiles_x, tiles_l, tiles_m;
+};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i & 2 ? (i & 1 ? v.w : v.z) : (i & 1 ? v.y : v.x);
+}
+
+// out[c * L * X + l * X + x] = in[c * in_stride + x * L + l], a tile a
+// block. Load: the tile's rows are cut into the 16-byte chunks of device
+// memory they touch; a thread loads WT_IN_FLIGHT chunks (uint4 where the
+// chunk lies wholly in the row, else its words) before it stores any, and
+// writes each word to shared memory at its place in the output span, offset
+// so that the span's 16-byte chunks are shared memory's. Chunks are dealt
+// to threads g rows at a time (g = gcd(xc, 32)), their words written in an
+// order rotated by lane / max(8, g): the scattered stores of a warp then
+// fall in 32 banks wherever its chunks lie in one group of rows of one
+// alignment (tests/test_torch_relayout.py counts them). Store: the
+// span in order, a uint4 a thread from aligned shared memory to the aligned
+// destination, single words at its head and tail.
+__global__ void __launch_bounds__(WT_THREADS)
+relayout_word_tile_kernel(const uint32_t* __restrict__ in,
+                          uint32_t* __restrict__ out, const WordTilePlan q) {
+  __shared__ __align__(16) uint32_t s[WT_CAP + 4];
+  unsigned b = blockIdx.x;
+  const int tx = (int)(b % q.tiles_x);
+  b /= q.tiles_x;
+  const int tl = (int)(b % q.tiles_l);
+  b /= q.tiles_l;
+  const int tm = (int)(b % q.tiles_m);
+  const long long row = b / q.tiles_m;
+  const int x0 = tx * q.xt, xc = min(q.xt, q.X - x0);
+  const int l0 = tl * q.lt, lc = min(q.lt, q.L - l0);
+  const long long c0 = (long long)tm * q.mt;
+  const int mc = (int)min((long long)q.mt, q.cols - c0);
+  const long long col0 = (c0 * q.L + l0) * q.X + x0;
+  const int keep = (int)min((long long)mc * lc * xc, q.keep - col0);
+  if (keep <= 0) return;  // block-uniform: cropped away
+  uint32_t* const dst = out + row * q.pitch + col0;
+  const int head = (int)(((uintptr_t)dst >> 2) & 3);
+  const uint32_t* const src =
+      in + (row * q.cols + c0) * q.in_stride + (long long)x0 * q.L + l0;
+  // Chunks a row: exact where every row starts at src's alignment.
+  const bool aligned =
+      (mc == 1 || q.in_stride % 4 == 0) && (xc == 1 || q.L % 4 == 0);
+  const int kc = aligned ? (int)((((uintptr_t)src >> 2) & 3) + lc + 3) >> 2
+                         : (lc + 6) >> 2;
+  const int g = min(32, xc & -xc), lg = __ffs(g) - 1, rows_g = xc >> lg;
+  const int rot = ((threadIdx.x & 31) / max(8, g)) & 3;
+  const int items = mc * xc * kc;
+  for (int base = 0; base < items; base += WT_THREADS * WT_IN_FLIGHT) {
+    uint4 v[WT_IN_FLIGHT];
+    int first[WT_IN_FLIGHT], pos[WT_IN_FLIGHT];
+#pragma unroll
+    for (int r = 0; r < WT_IN_FLIGHT; ++r) {
+      const int f = base + r * WT_THREADS + (int)threadIdx.x;
+      first[r] = lc;  // nothing to store
+      pos[r] = 0;
+      if (f >= items) continue;
+      const int rg = (f >> lg) / kc, k = (f >> lg) - rg * kc;
+      const int m = rg / rows_g, x = (rg - m * rows_g) * g + (f & (g - 1));
+      const uint32_t* piece = src + m * q.in_stride + (long long)x * q.L;
+      const int lt = 4 * k - (int)(((uintptr_t)piece >> 2) & 3);
+      const int p = (m * lc + lt) * xc + x;  // span place of word 0
+      if (lt >= lc || p >= keep) continue;  // past the row, or cropped
+      first[r] = lt;
+      pos[r] = p + head;
+      const uint32_t* chunk = piece + lt;
+      if (lt >= 0 && lt + 4 <= lc) {
+        v[r] = *reinterpret_cast<const uint4*>(chunk);
+      } else {
+        v[r].x = lt >= 0 ? chunk[0] : 0u;
+        v[r].y = lt + 1 >= 0 && lt + 1 < lc ? chunk[1] : 0u;
+        v[r].z = lt + 2 >= 0 && lt + 2 < lc ? chunk[2] : 0u;
+        v[r].w = lt + 3 < lc ? chunk[3] : 0u;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < WT_IN_FLIGHT; ++r) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w = (i + rot) & 3, lt = first[r] + w;
+        const int p = pos[r] + w * xc;
+        if (lt >= 0 && lt < lc && p - head < keep) s[p] = word_of(v[r], w);
+      }
+    }
   }
   __syncthreads();
-  // The tile's outputs in memory order: xw consecutive x for each l.
-  const int xw = min(TILE, X - x0);
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int k = tid; k < TILE * xw; k += TILE * TILE_ROWS) {
-    const int dl = k / xw, dx = k - dl * xw;
-    if (l0 + dl >= L) break;
-    uint32_t* dst = out_at(l0 + dl, x0 + dx);
-    if (dst) *dst = tile[dx][dl];
+  uint4* const vdst = reinterpret_cast<uint4*>(dst - head);
+  const int chunks = (head + keep + 3) >> 2;
+  for (int c = threadIdx.x; c < chunks; c += WT_THREADS) {
+    const int p = 4 * c - head;  // span place of the chunk's first word
+    if (p >= 0 && p + 4 <= keep) {
+      vdst[c] = *reinterpret_cast<const uint4*>(s + 4 * c);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (p + i >= 0 && p + i < keep) dst[p + i] = s[4 * c + i];
+    }
   }
 }
 
-__global__ void __launch_bounds__(TILE * TILE_ROWS)
-relayout_interleave_kernel(const uint32_t* __restrict__ in,
-                           uint32_t* __restrict__ out, const RelayoutParams p) {
-  const size_t n = blockIdx.x;
-  const int X = (int)p.x, L = (int)p.l;
-  uint32_t* dst = out + n * (size_t)X * L;
-  transpose_tile(in + n * (size_t)p.in_stride, X, L,
-                 [&](int l, int x) { return dst + (size_t)l * X + x; });
+WordTilePlan word_tile_plan(long long rows, long long cols, long long X,
+                            long long L, long long in_stride,
+                            long long pitch, long long keep) {
+  WordTilePlan q{rows, cols, in_stride, pitch, keep, (int)X, (int)L,
+                 (int)X, (int)L, 1, 1, 1, 1};
+  // Whole matrices where one fits, else runs of lanes (or of rows) cut
+  // into tiles of near equal size.
+  if (X * L <= WT_CAP) {
+    const long long mt = X * L <= WT_WORDS ? WT_WORDS / (X * L) : 1;
+    q.mt = (int)(cols < mt ? cols : mt);
+  } else if (X <= WT_CAP) {
+    const long long parts = (X * L + WT_WORDS - 1) / WT_WORDS;
+    const long long lt = (L + parts - 1) / parts;
+    q.lt = (int)(lt < WT_CAP / X ? lt : WT_CAP / X);
+  } else {
+    const long long parts = (X + WT_WORDS - 1) / WT_WORDS;
+    q.xt = (int)((X + parts - 1) / parts), q.lt = 1;
+  }
+  q.tiles_x = (int)((X + q.xt - 1) / q.xt);
+  q.tiles_l = (int)((L + q.lt - 1) / q.lt);
+  q.tiles_m = (int)((cols + q.mt - 1) / q.mt);
+  return q;
+}
+
+cudaError_t launch_word_tile(const void* in, void* out, const WordTilePlan& q,
+                             cudaStream_t stream) {
+  const long long blocks =
+      q.rows * q.tiles_m * (long long)q.tiles_l * q.tiles_x;
+  relayout_word_tile_kernel<<<(unsigned)blocks, WT_THREADS, 0, stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, q);
+  return cudaGetLastError();
 }
 
 // The interleave in 16-byte vectors, for X in {4, 8, 16, 32}, L % 4 == 0 and
-// 16-byte aligned matrices (ops/relayout.interleave_route vouches for it).
+// 16-byte aligned matrices (ops/relayout.interleave_route vouches for it;
+// swap_crop_route likewise with a row pitch and crop of whole vectors).
 // A thread owns the 4 x 4 block (x4 .. x4 + 3, l4 .. l4 + 3) of one matrix:
 // it loads the four vectors in[x4 + i][l4 .. l4 + 3], all before the first
 // store, and stores the four vectors out[l4 + k][x4 .. x4 + 3], whose words
 // are the k-th words of the loaded ones. Threads are numbered with the X / 4
 // blocks of one l4 side by side (lxq = log2(X / 4)), then along l, then
-// over the matrices.
-template <class Idx>
+// over the matrices. With kCrop matrix m is (row, column) m / cols, m % cols
+// of an output of row pitch `pitch`, and vectors at or past column `keep`
+// are not stored (whole vectors: x4, X and keep are multiples of 4).
+template <class Idx, bool kCrop>
 __global__ void __launch_bounds__(256)
 relayout_interleave_vec_kernel(const uint32_t* __restrict__ in,
                                uint32_t* __restrict__ out, Idx n, int X,
-                               int L, int lxq, Idx in_stride) {
+                               int L, int lxq, Idx in_stride, Idx cols,
+                               Idx pitch, Idx keep) {
   const Idx per = (Idx)(L >> 2) << lxq;  // blocks of one matrix
   const Idx w = (Idx)blockIdx.x * 256 + threadIdx.x;
   if (w >= n * per) return;
   const Idx m = w / per;
   const int r = (int)(w - m * per);
   const int x4 = (r & ((1 << lxq) - 1)) * 4, l4 = (r >> lxq) * 4;
+  Idx at = (m * L + l4) * X + x4, room = 4 * (Idx)X;
+  if (kCrop) {
+    const Idx row = m / cols;
+    const Idx col = ((m - row * cols) * L + l4) * X + x4;
+    if (col >= keep) return;
+    at = row * pitch + col;
+    room = keep - col;
+  }
   const uint32_t* src = in + m * in_stride + (Idx)x4 * L + l4;
   uint4 v[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     v[i] = *reinterpret_cast<const uint4*>(src + (Idx)i * L);
-  uint32_t* dst = out + (m * L + l4) * X + x4;
-  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0].x, v[1].x, v[2].x, v[3].x);
-  *reinterpret_cast<uint4*>(dst + X) =
-      make_uint4(v[0].y, v[1].y, v[2].y, v[3].y);
-  *reinterpret_cast<uint4*>(dst + 2 * X) =
-      make_uint4(v[0].z, v[1].z, v[2].z, v[3].z);
-  *reinterpret_cast<uint4*>(dst + 3 * X) =
-      make_uint4(v[0].w, v[1].w, v[2].w, v[3].w);
+  uint32_t* dst = out + at;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (!kCrop || (Idx)k * X < room)
+      *reinterpret_cast<uint4*>(dst + k * X) = make_uint4(
+          word_of(v[0], k), word_of(v[1], k), word_of(v[2], k),
+          word_of(v[3], k));
 }
 
-__global__ void __launch_bounds__(TILE * TILE_ROWS)
-relayout_swap_crop_kernel(const uint32_t* __restrict__ slab,
-                          uint32_t* __restrict__ out, const RelayoutParams p) {
-  const long long n = blockIdx.x;  // (slab row, tile column)
-  const long long row = n / p.tiles;
-  const long long c = n - row * p.tiles;
-  if (row >= p.h) return;  // block-uniform: a cropped slab row
-  const int X = (int)p.x, L = (int)p.l;
-  uint32_t* dst = out + row * p.w;
-  const long long col0 = c * L * X;
-  transpose_tile(slab + (size_t)n * X * L, X, L, [&](int l, int x) {
-    const long long col = col0 + (long long)l * X + x;
-    return col < p.w ? dst + col : (uint32_t*)nullptr;
-  });
+template <bool kCrop>
+cudaError_t launch_interleave_vec(const void* in, void* out, long long n,
+                                  long long X, long long L,
+                                  long long in_stride, long long cols,
+                                  long long pitch, long long keep,
+                                  long long out_words, cudaStream_t s) {
+  int lx = 0;
+  while ((1LL << lx) < X) ++lx;
+  const long long total = n * X * L;
+  const long long in_words = n * in_stride;
+  const long long reach = in_words > out_words ? in_words : out_words;
+  const unsigned blocks = blocks_of(total / 16, 256);
+  if (reach < (1LL << 31) - (1LL << 24) && total < (1LL << 31))
+    relayout_interleave_vec_kernel<int, kCrop><<<blocks, 256, 0, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, (int)n, (int)X, (int)L, lx - 2,
+        (int)in_stride, (int)cols, (int)pitch, (int)keep);
+  else
+    relayout_interleave_vec_kernel<long long, kCrop><<<blocks, 256, 0, s>>>(
+        (const uint32_t*)in, (uint32_t*)out, n, (int)X, (int)L, lx - 2,
+        in_stride, cols, pitch, keep);
+  return cudaGetLastError();
 }
 
 // One thread per vector of T (uint4 where L % 4 == 0 and both pointers are
@@ -197,10 +338,6 @@ relayout_spread_merge_kernel(const uint32_t* __restrict__ a,
   const Idx s = sl / l;
   const Idx src = s * in_stride + (sl - s * l);
   out[i] = k == 0 ? a[src] : b[src];
-}
-
-inline unsigned blocks_of(long long total, int threads) {
-  return (unsigned)((total + threads - 1) / threads);
 }
 
 constexpr int COPY_IN_FLIGHT = 4;
@@ -303,10 +440,6 @@ cudaError_t launch_spread_merge(const void* a, const void* b, void* out,
   return cudaGetLastError();
 }
 
-inline unsigned tiles_of(const RelayoutParams* p) {
-  return (unsigned)(((p->x + TILE - 1) / TILE) * ((p->l + TILE - 1) / TILE));
-}
-
 }  // namespace
 
 extern "C" {
@@ -318,39 +451,32 @@ int compeg_relayout_interleave(const void* in, void* out,
                                const RelayoutParams* p, void* stream) {
   if (p->n > 0 && p->x > 0 && p->l > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const long long in_words = p->n * p->in_stride;
-    const long long total = p->n * p->x * p->l;
-    const bool narrow =
-        (in_words > total ? in_words : total) < (1LL << 31) - (1LL << 24);
-    if (p->vec) {
-      int lx = 0;
-      while ((1LL << lx) < p->x) ++lx;
-      const unsigned blocks = blocks_of(total / 16, 256);
-      if (narrow)
-        relayout_interleave_vec_kernel<int><<<blocks, 256, 0, s>>>(
-            (const uint32_t*)in, (uint32_t*)out, (int)p->n, (int)p->x,
-            (int)p->l, lx - 2, (int)p->in_stride);
-      else
-        relayout_interleave_vec_kernel<long long><<<blocks, 256, 0, s>>>(
-            (const uint32_t*)in, (uint32_t*)out, p->n, (int)p->x, (int)p->l,
-            lx - 2, p->in_stride);
-    } else {
-      relayout_interleave_kernel<<<dim3((unsigned)p->n, tiles_of(p)),
-                                   dim3(TILE, TILE_ROWS), 0, s>>>(
-          (const uint32_t*)in, (uint32_t*)out, *p);
-    }
+    const long long words = p->n * p->x * p->l;
+    if (p->vec)
+      return (int)launch_interleave_vec<false>(in, out, p->n, p->x, p->l,
+                                               p->in_stride, p->n, words,
+                                               words, words, s);
+    return (int)launch_word_tile(
+        in, out, word_tile_plan(1, p->n, p->x, p->l, p->in_stride, words,
+                                words), s);
   }
   return (int)cudaGetLastError();
 }
 
 // slab [n / tiles, tiles * X * L] -> out [h, w]; n counts (row, tile column).
+// Slab rows at or past h are not read. With p->vec the caller vouches for
+// what the 16-byte kernel needs (ops/relayout.swap_crop_route).
 int compeg_relayout_swap_crop(const void* slab, void* out,
                               const RelayoutParams* p, void* stream) {
   if (p->n > 0 && p->x > 0 && p->l > 0 && p->h > 0 && p->w > 0) {
-    relayout_swap_crop_kernel<<<dim3((unsigned)p->n, tiles_of(p)),
-                                dim3(TILE, TILE_ROWS), 0,
-                                (cudaStream_t)stream>>>(
-        (const uint32_t*)slab, (uint32_t*)out, *p);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (p->vec)
+      return (int)launch_interleave_vec<true>(
+          slab, out, p->h * p->tiles, p->x, p->l, p->x * p->l, p->tiles,
+          p->w, p->w, p->h * p->w, s);
+    return (int)launch_word_tile(
+        slab, out, word_tile_plan(p->h, p->tiles, p->x, p->l, p->x * p->l,
+                                  p->w, p->w), s);
   }
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,10 @@ compute is one hand-written kernel:
 * :func:`relayout_interleave`: the minor transpose ``[..., X, L] ->
   [..., L, X]`` flattened to ``[..., L * X]``, optionally with the rows
   stacked as the raster form stacks them. It has a 16-byte vector kernel
-  and a word kernel; :func:`interleave_route` picks between them;
+  and a word tile; :func:`interleave_route` picks between them;
 * :func:`relayout_swap_crop`: the assembly's tile swap and the crop to
-  ``[H, W]`` in one pass;
+  ``[H, W]`` in one pass, the interleave of every tile of the slab into a
+  pitched raster on the same two kernels; :func:`swap_crop_route` picks;
 * :func:`relayout_stack`: ``[g, s, r, x, l] -> [g, x, s * R + r, l]``;
 * :func:`relayout_spread_merge`: ``out[s, l * X + k] = (a if k == 0 else
   b)[s, l]``; :func:`relayout_spread` (``b = a``) and :func:`relayout_copy`
@@ -78,7 +79,9 @@ def interleave_route(in_ptr: int, out_ptr: int, n: int, x: int, l: int,
                      in_stride: int) -> str:
     """Which kernel an interleave of ``n`` matrices ``[x, l]`` takes, from
     its pointers (byte addresses), sizes and batch stride alone: ``"vec"``,
-    the 16-byte kernel, or ``"word"``, the tile of single words.
+    the 16-byte kernel, or ``"word"``, the word tile (16-byte vectors where
+    memory's alignment allows, single words at the ends of its rows and of
+    its output span).
 
     The vector kernel moves 4 x 4 blocks, so it needs X in {4, 8, 16, 32}
     (its index splits are shifts), rows of whole vectors (``l % 4 == 0``),
@@ -142,6 +145,20 @@ def _tile_columns(slab: torch.Tensor, x: int) -> int:
     return slab.shape[2] // (x * LANES)
 
 
+def swap_crop_route(slab_ptr: int, out_ptr: int, x: int, width: int) -> str:
+    """Which kernel :func:`relayout_swap_crop` takes, from its pointers
+    (byte addresses), X and the kept width alone: ``"vec"``, the interleave's
+    16-byte kernel with a pitched destination, or ``"word"``, the word tile.
+
+    The vector kernel needs what the interleave's does (X in {4, 8, 16, 32},
+    both pointers on a 16-byte boundary; the slab's rows of 128 words and
+    tiles of ``X * 128`` are whole vectors), and output rows of whole
+    vectors (``width % 4 == 0``), so that the crop drops whole vectors."""
+    if x not in (4, 8, 16, 32) or slab_ptr % 16 or out_ptr % 16 or width % 4:
+        return "word"
+    return "vec"
+
+
 def relayout_swap_crop(slab: torch.Tensor, x: int, height: int,
                        width: int) -> torch.Tensor:
     """The tiled slab ``[n_tr, RT, n_tc * X * 128]`` to the raster ``[H,
@@ -159,8 +176,10 @@ def relayout_swap_crop(slab: torch.Tensor, x: int, height: int,
         return relayout_swap_crop_reference(slab, x, height, width)
     _contiguous(slab, "slab")
     out = torch.empty((height, width), dtype=torch.int32, device=slab.device)
+    route = swap_crop_route(slab.data_ptr(), out.data_ptr(), x, width)
     _launch("compeg_relayout_swap_crop", "swap_crop", slab, out,
-            n=n_tr * rt * n_tc, x=x, l=LANES, tiles=n_tc, h=height, w=width)
+            n=n_tr * rt * n_tc, x=x, l=LANES, tiles=n_tc, h=height, w=width,
+            vec=int(route == "vec"))
     return out
 
 

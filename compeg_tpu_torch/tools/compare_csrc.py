@@ -21,20 +21,21 @@ lookup (:func:`legacy_packed`).
 On ``bench_assets/bench4k.jpg``, the same frame with garbage entropy bits
 (``testdata.garbage_scan``, seed 5) and the small streams of
 ``testdata/smoke.npz`` every fused kernel (K2, K2x, K3 integer and float,
-K2s at k = 1, 2, 4), K1 and the relayout copy and spread of every tree must
-give the first tree's output bit for bit; a difference is reported with its
+K2s at k = 1, 2, 4), K1 and every relayout call of :func:`relayout_calls`
+(the copy, spread and merge, the interleave on both routes, the swap and
+crop on both) of every tree must give the first tree's output bit for bit; a difference is reported with its
 size and makes the exit code 1. Then the times: CUDA events around a burst
 of ``BURST`` launches enqueued while the card still spins in a kernel
 before them (``profiling.burst_ms``: the card, not the host's launch path,
 sets the time), divided by their number, the trees taking turns (forward in even
 rounds, backward in odd ones), the median of ``--reps`` rounds per tree; K2,
 K2x and K3 also on a batch of ``FRAMES`` copies of the frame, per frame;
-the copy of a 4K raster's 33.5 MB, alternating between two inputs so that no
-launch finds its input in the L2 cache, beside ``torch.clone()`` in the same
-rounds, and the interleave of as many bytes beside
-``transpose(-1, -2).contiguous()``. ``--ptxas``
-prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu (registers,
-spills) first. One JSON object with every median is printed and, with
+each relayout call alternating between two inputs so that no launch finds
+its input in the L2 cache, beside the one PyTorch call of the same
+function (``library``: ``clone()``, ``transpose(-1, -2).contiguous()``,
+the swap's reshape, transpose and crop) in the same rounds. ``--ptxas``
+prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu and
+relayout.cu (registers, spills) first. One JSON object with every median is printed and, with
 ``--out``, written to that file.
 """
 
@@ -68,14 +69,20 @@ FRAMES = 64  # copies of the 4K frame in the batch
 
 
 def ptxas_report(csrc: str) -> str:
-    """The resource lines of ``nvcc -Xptxas -v`` for ``csrc``'s decode.cu."""
-    res = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         os.devnull, os.path.join(csrc, "decode.cu")],
-        capture_output=True, text=True)
-    keep = [ln.strip() for ln in res.stderr.splitlines()
-            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
-    return "\n".join(keep) if res.returncode == 0 else res.stderr
+    """The resource lines of ``nvcc -Xptxas -v`` for ``csrc``'s decode.cu
+    and relayout.cu."""
+    lines = []
+    for name in ("decode.cu", "relayout.cu"):
+        res = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.devnull, os.path.join(csrc, name)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            return res.stderr
+        lines += [ln.strip() for ln in res.stderr.splitlines()
+                  if "Compiling entry" in ln or "registers" in ln
+                  or "spill" in ln]
+    return "\n".join(lines)
 
 
 def tree_lut_bits(csrc: str) -> Optional[int]:
@@ -170,12 +177,20 @@ def _stack(rows: torch.Tensor, b: int) -> torch.Tensor:
     return rows.unsqueeze(0).expand(b, *rows.shape).contiguous()
 
 
-def relayout_calls(device) -> Dict[str, Callable]:
-    """The copy of a 4K raster (aligned, and one word off), a strided copy
-    and the 16-fold spread and merge, through each tree's P4 entry point;
-    the interleave at the probe's shape (``[4096, 16, 128]``, 33.5 MB) through
-    each tree's P1 entry point, on the route ``interleave_route`` picks and
-    on the word kernel."""
+def relayout_calls(device) -> Dict[str, tuple]:
+    """``name -> (fn(lib, i), library)``: the copy of a 4K raster (aligned,
+    and one word off), a strided copy and the 16-fold spread and merge,
+    through each tree's P4 entry point; the interleave at the probe's shape
+    (``[4096, 16, 128]``, 33.5 MB) on the route ``interleave_route`` picks
+    and on the word route, and at the word route's shapes of chip_smoke's
+    phase (i) (one word off, X = 3, X = 64, L = 130), through each tree's
+    P1 entry point; the swap and crop of the 4K slab (``[34, 64, 4096] ->
+    [2160, 3840]``, the vector route) and of the same slab to a width of
+    3838 (the word route), through each tree's P2 entry point. ``library``
+    is ``fn(i)``, the one PyTorch call of the same function that is timed
+    beside the trees (``clone()``, ``transpose(-1, -2).contiguous()``, the
+    swap's reshape, transpose and crop), or None. A tree reads the launch
+    parameters it knows: an older one ignores ``vec`` of the swap."""
     bigs = [torch.randint(0, 1 << 24, (2160 * 3840 + 4,), dtype=torch.int32,
                           device=device) for _ in range(2)]
     grid = [b[:2160 * 3840].reshape(2160, 3840) for b in bigs]
@@ -196,9 +211,7 @@ def relayout_calls(device) -> Dict[str, Callable]:
             return (out,)
         return call
 
-    mats = [b[:2160 * 3840 // 2048 * 2048].reshape(-1, 16, 128) for b in bigs]
-
-    def p1(vec=None):
+    def p1(mats, vec=None):
         def call(lib, i=0):
             a = mats[i % 2]
             n, x, l = a.shape
@@ -212,20 +225,63 @@ def relayout_calls(device) -> Dict[str, Callable]:
             return (out,)
         return call
 
+    def transpose(mats):
+        return lambda i: mats[i % 2].transpose(-1, -2).contiguous()
+
+    slabs = [torch.randint(0, 1 << 24, (34, 64, 4096), dtype=torch.int32,
+                           device=device) for _ in range(2)]
+
+    def p2(width):
+        def call(lib, i=0):
+            slab = slabs[i % 2]
+            out = torch.empty((2160, width), dtype=torch.int32, device=device)
+            route = R.swap_crop_route(slab.data_ptr(), out.data_ptr(), 16,
+                                      width)
+            _build.launch("compeg_relayout_swap_crop", slab, out, lib=lib,
+                          params=_build.RelayoutParams(
+                              n=34 * 64 * 2, x=16, l=R.LANES, tiles=2,
+                              h=2160, w=width, vec=int(route == "vec")))
+            return (out,)
+        return call
+
+    def swap(width):
+        return lambda i: R.relayout_swap_crop_reference(slabs[i % 2], 16, 2160,
+                                                        width)
+
+    n1 = 64 * 8 * 8
+    bases = [torch.randint(0, 1 << 24, (n1 * 16 * 130 + 8,),
+                           dtype=torch.int32, device=device)
+             for _ in range(2)]
+    views = {
+        "one word off": lambda b: b[1:1 + n1 * 2048].reshape(n1, 16, 128),
+        "X = 3": lambda b: b[:n1 * 384].reshape(n1, 3, 128),
+        "X = 64": lambda b: b[:n1 * 2048].reshape(n1, 64, 32),
+        "L = 130": lambda b: b[:n1 * 2080].reshape(n1, 16, 130),
+    }
+    mats = [b[:2160 * 3840 // 2048 * 2048].reshape(-1, 16, 128) for b in bigs]
     off = [b[1:1 + 2160 * 3840].reshape(2160, 3840) for b in bigs]
     cols = [g[:, :3836] for g in grid]
-    return {
-        "copy 33.5 MB": p4(grid, grid, 1),
-        "copy 33.5 MB, one word off": p4(off, off, 1),
-        "copy of strided rows": p4(cols, cols, 1),
-        "spread x16 to 33.5 MB": p4([small[0]] * 2, [small[0]] * 2, 16),
-        "merge x16 to 33.5 MB": p4([small[0]] * 2, [small[1]] * 2, 16),
-        "interleave 33.2 MB": p1(),
-        "interleave 33.2 MB, word kernel": p1(0),
-        "_clone": lambda lib, i=0: (grid[i % 2].clone(),),
-        "_transpose": lambda lib, i=0: (
-            mats[i % 2].transpose(-1, -2).contiguous(),),
+    clone = lambda i: grid[i % 2].clone()  # noqa: E731
+    calls = {
+        "copy 33.5 MB": (p4(grid, grid, 1), clone),
+        "copy 33.5 MB, one word off": (p4(off, off, 1),
+                                       lambda i: off[i % 2].clone()),
+        "copy of strided rows": (p4(cols, cols, 1),
+                                 lambda i: cols[i % 2].clone()),
+        "spread x16 to 33.5 MB": (p4([small[0]] * 2, [small[0]] * 2, 16),
+                                  None),
+        "merge x16 to 33.5 MB": (p4([small[0]] * 2, [small[1]] * 2, 16),
+                                 None),
+        "interleave 33.2 MB": (p1(mats), transpose(mats)),
+        "interleave 33.2 MB, word kernel": (p1(mats, 0), transpose(mats)),
     }
+    for name, view in views.items():
+        vs = [view(b) for b in bases]
+        calls[f"interleave, word route, {name}"] = (p1(vs), transpose(vs))
+    calls["swap_crop 4K slab to [2160, 3840]"] = (p2(3840), swap(3840))
+    calls["swap_crop 4K slab to [2160, 3838], word route"] = (p2(3838),
+                                                              swap(3838))
+    return calls
 
 
 def time_in_turns(fns: List[Callable], reps: int,
@@ -295,7 +351,7 @@ def main(argv=None) -> int:
                 bad.append(f"{label}: {name} differs from {names[0]} by up "
                            f"to {differences(got, want)}")
 
-    calls4k, batch, rl, clone, transpose = {}, {}, {}, None, None
+    calls4k, batch, rl, library = {}, {}, {}, {}
     if args.kernels != "relayout":
         vec = testdata.load()
         for i, label in enumerate(vec["labels"]):
@@ -316,9 +372,10 @@ def main(argv=None) -> int:
         calls4k = frame_calls(data4k, device)
         batch = calls4k.pop("_batch")(FRAMES)
     if args.kernels != "decode":
-        rl = relayout_calls(device)
-        clone = rl.pop("_clone")
-        transpose = rl.pop("_transpose")
+        for kname, (call, lib_call) in relayout_calls(device).items():
+            rl[kname] = call
+            if lib_call is not None:
+                library[kname] = lib_call
     for kname, call in {**calls4k, **rl}.items():
         check(f"4K {kname}", call)
     for kname, call in batch.items():
@@ -342,12 +399,7 @@ def main(argv=None) -> int:
         timed(f"{kname} batched, per frame of {FRAMES}", call,
               max(3, args.reps // 4), per=FRAMES, burst=1)
     for kname, call in rl.items():
-        extra = ()
-        if kname.startswith("copy 33.5 MB"):
-            extra = [("torch.clone", lambda i: clone(None, i))]
-        elif kname.startswith("interleave"):
-            extra = [("transpose(-1,-2).contiguous()",
-                      lambda i: transpose(None, i))]
+        extra = [("library", library[kname])] if kname in library else ()
         timed(kname, call, args.reps, extra=extra)
     result["differences"] = bad
     if args.out:

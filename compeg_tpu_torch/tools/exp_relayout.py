@@ -19,7 +19,9 @@ kernels takes the card less time than the host takes to launch it, so
 launches timed one by one would time the host. Successive launches alternate between two copies of
 the input, so that a launch does not find its input in the 50 MB L2.
 
-P2 also runs on the real thing, as tools/exp_swap_pallas.py does: the port's
+P2 runs on both of its routes: to the 4K raster's width (the 16-byte
+kernel) and two words narrower (the word tile). It also runs on the real
+thing, as tools/exp_swap_pallas.py does: the port's
 decode writes the raster itself and has no slab, so the slab is built from
 ``Decoder().decode_prepared`` of ``bench_assets/bench4k.jpg`` by the inverse
 permutation (plain PyTorch), and the kernel must give the decode back bit
@@ -68,17 +70,21 @@ def cuda_ms(fn: Callable[[int], torch.Tensor], reps: int) -> float:
 
 def probe(name: str, probe_id: str, kernel: Callable, plain: Callable,
           inputs_np: List[np.ndarray], want: np.ndarray, device,
-          reps: int, view: Optional[Callable] = None) -> Dict:
+          reps: int, view: Optional[Callable] = None,
+          read_words: Optional[int] = None) -> Dict:
     """Run ``kernel(*inputs)`` on ``device``, require ``want``, and time it
     and ``plain`` where the device is a CUDA card. ``view`` picks the kernel's
-    operands out of the uploaded tensors (a strided slice, say)."""
+    operands out of the uploaded tensors (a strided slice, say);
+    ``read_words`` is what the function must read of them where that is less
+    than all of them (a crop), for the bound."""
     view = view or (lambda *t: t)
     sets = [[_dev(a, device) for a in inputs_np] for _ in range(2)]
     got = kernel(*view(*sets[0]))
     ok = (tuple(got.shape) == want.shape and np.array_equal(
         got.cpu().numpy().view(np.uint32), want))
-    touched = [t for t in view(*sets[0])]
-    nbytes = sum(t.numel() * 4 for t in touched) + got.numel() * 4
+    if read_words is None:
+        read_words = sum(t.numel() for t in view(*sets[0]))
+    nbytes = (read_words + got.numel()) * 4
     res = {"name": name, "probe": probe_id, "ok": bool(ok), "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ms": None,
            "library_ms": None,
@@ -116,7 +122,14 @@ def probes(device, reps: int = 20, groups: Optional[int] = None) -> List[Dict]:
     out.append(probe("relayout_swap_crop", "P2 swap + crop",
                      lambda v: R.relayout_swap_crop(v, X, h, w),
                      lambda v: R.relayout_swap_crop_reference(v, X, h, w),
-                     [slab], np.ascontiguousarray(want), device, reps))
+                     [slab], np.ascontiguousarray(want), device, reps,
+                     read_words=h * w))
+    # ... to rows of no whole vectors: the word route.
+    out.append(probe("relayout_swap_crop", "P2 swap + crop, word route",
+                     lambda v: R.relayout_swap_crop(v, X, h, w - 2),
+                     lambda v: R.relayout_swap_crop_reference(v, X, h, w - 2),
+                     [slab], np.ascontiguousarray(want[:, :w - 2]), device,
+                     reps, read_words=h * (w - 2)))
     # P3, tools/exp_assembly2.py: G = 34 * 2 blocks.
     g3 = groups or 68
     x3 = _random((g3, S, RR, X, L))
@@ -180,7 +193,7 @@ def swap_on_decode(device, reps: int = 20, path: str = BENCH) -> Dict:
     x, rt = g.ri * mw, S * mh
     slab = R.swap_crop_inverse(img, x, rt)
     got = R.relayout_swap_crop(slab, x, g.height, g.width)
-    nbytes = (slab.numel() + got.numel()) * 4
+    nbytes = 2 * got.numel() * 4  # the kept words, read once, written once
     res = {"name": "relayout_swap_crop",
            "probe": f"P2 on the decode of {os.path.basename(path)} "
                     f"(slab {list(slab.shape)} -> {list(got.shape)})",

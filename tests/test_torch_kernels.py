@@ -416,8 +416,8 @@ def test_relayout_kernels_equal_numpy_and_count_their_launches(cuda):
 @pytest.mark.parametrize("x,l,n", [(16, 128, 5), (1, 128, 3), (33, 70, 2),
                                    (64, 31, 4), (7, 5, 9)])
 def test_relayout_transposes_at_ragged_sizes(cuda, x, l, n):
-    """Tiles that the 32 x 32 tile does not divide, against the plain
-    versions (exact)."""
+    """Sizes that no tile of the plan divides, against the plain versions
+    (exact)."""
     v = torch.randint(0, 1 << 24, (n, 3, x, l), dtype=torch.int32,
                       device=cuda)
     got = counted("interleave", R.relayout_interleave, v)
@@ -614,3 +614,74 @@ def test_interleave_on_each_route(cuda, name, make, route):
     if v.dim() == 5:
         stacked = counted("interleave", R.relayout_interleave, v, True)
         assert torch.equal(stacked, R.relayout_interleave_reference(v, True))
+
+
+# -- the word tile and the swap's two routes, at every alignment -------------
+
+
+def launch_at(entry, key, src, out, **fields):
+    """Launch a relayout entry point into ``out`` (any view), as the wrapper
+    would but with the destination of the caller's choosing; one launch."""
+    before = _build.LAUNCHES[key]
+    R._launch(entry, key, src, out, **fields)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1
+
+
+@pytest.mark.parametrize("l", [1, 126, 130])
+@pytest.mark.parametrize("x", [1, 2, 3, 12, 16, 64, 65, 2051])
+def test_word_tile_at_every_alignment(cuda, x, l):
+    """P1's word route with input and output 0 to 3 words past a 16-byte
+    boundary, contiguous and a ragged batch stride apart, against the plain
+    version; the words around the output stay untouched."""
+    n = 3
+    for stride in (x * l, x * l + 5):
+        base = torch.randint(0, 1 << 24, (n * stride + 8,), dtype=torch.int32,
+                             device=cuda)
+        for in_off in range(4):
+            mats = base[in_off:in_off + n * stride].reshape(n, stride)[
+                :, :x * l].reshape(n, x, l)
+            want = R.relayout_interleave_reference(mats)
+            for out_off in range(4):
+                buf = torch.full((n * x * l + 8,), 7, dtype=torch.int32,
+                                 device=cuda)
+                out = buf[out_off:out_off + n * x * l].reshape(n, l * x)
+                vec = R.interleave_route(mats.data_ptr(), out.data_ptr(), n,
+                                         x, l, stride)
+                assert vec == "word"
+                launch_at("compeg_relayout_interleave", "interleave", mats,
+                          out, n=n, x=x, l=l, in_stride=stride, vec=0)
+                assert torch.equal(out, want), (stride, in_off, out_off)
+                assert (buf[:out_off] == 7).all()
+                assert (buf[out_off + n * x * l:] == 7).all()
+
+
+@pytest.mark.parametrize("x,h,w,route", [
+    (16, 2160, 3840, "vec"), (16, 100, 2052, "vec"), (8, 65, 1028, "vec"),
+    (4, 7, 4, "vec"), (32, 9, 4092, "vec"),
+    (16, 2160, 3838, "word"), (16, 65, 2049, "word"), (3, 33, 700, "word"),
+    (12, 5, 1535, "word"), (1, 3, 1, "word")])
+def test_swap_crop_on_each_route(cuda, x, h, w, route):
+    """P2 on the route swap_crop_route names, against the plain version:
+    whole and cropped edge tiles, and (word route) slab and raster 1 to 3
+    words past a 16-byte boundary."""
+    n_tr, n_tc = -(-h // 64), -(-w // (x * 128))
+    cols = n_tc * x * 128
+    big = torch.randint(0, 1 << 24, (n_tr * 64 * cols + 4,),
+                        dtype=torch.int32, device=cuda)
+    slab = big[:n_tr * 64 * cols].reshape(n_tr, 64, cols)
+    want = R.relayout_swap_crop_reference(slab, x, h, w)
+    got = counted("swap_crop", R.relayout_swap_crop, slab, x, h, w)
+    assert R.swap_crop_route(slab.data_ptr(), got.data_ptr(), x, w) == route
+    assert torch.equal(got, want)
+    if route == "word":
+        for off in (1, 2, 3):
+            moved = big[off:off + n_tr * 64 * cols].reshape(n_tr, 64, cols)
+            buf = torch.full((h * w + 8,), 7, dtype=torch.int32, device=cuda)
+            out = buf[off:off + h * w].reshape(h, w)
+            launch_at("compeg_relayout_swap_crop", "swap_crop", moved, out,
+                      n=n_tr * 64 * n_tc, x=x, l=R.LANES, tiles=n_tc, h=h,
+                      w=w, vec=0)
+            assert torch.equal(
+                out, R.relayout_swap_crop_reference(moved, x, h, w)), off
+            assert (buf[:off] == 7).all() and (buf[off + h * w:] == 7).all()

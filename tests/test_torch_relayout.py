@@ -4,6 +4,9 @@ down to G = 2; P2's inverse-then-forward round trip on a small decode; and
 what the wrappers refuse. The CUDA kernels are held to the same answers in
 tests/test_torch_kernels.py and chip_smoke.py, on the card."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -11,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from compeg_tpu import encoder  # noqa: E402
 from compeg_tpu_torch import Decoder  # noqa: E402
+from compeg_tpu_torch.ops import _build  # noqa: E402
 from compeg_tpu_torch.ops import relayout as R  # noqa: E402
 from compeg_tpu_torch.tools import exp_relayout  # noqa: E402
 
@@ -102,7 +106,7 @@ def test_spread_merge_and_copy_are_the_bisect_constructs():
 
 def test_the_tool_checks_every_probe_on_the_cpu():
     results = exp_relayout.probes("cpu", groups=1)
-    assert len(results) == 11 and all(r["ok"] for r in results)
+    assert len(results) == 12 and all(r["ok"] for r in results)
     assert {r["name"] for r in results} == {
         "relayout_interleave", "relayout_swap_crop", "relayout_stack",
         "relayout_spread_merge"}
@@ -293,3 +297,359 @@ def test_interleave_vector_walk_equals_numpy(x, l, n):
             written[at:at + 4] += 1
     assert (written == 1).all()
     assert np.array_equal(out.reshape(n, l * x), want)
+
+
+# -- the word tile (P1's word route, P2's) and P2's vector route, in numpy ----
+
+
+def tile_constants():
+    """WT_THREADS, WT_WORDS, WT_CAP and WT_IN_FLIGHT as csrc/relayout.cu
+    has them."""
+    with open(os.path.join(_build.CSRC, "relayout.cu")) as f:
+        text = f.read()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", text)[1])
+            for k in ("WT_THREADS", "WT_WORDS", "WT_CAP", "WT_IN_FLIGHT")}
+
+
+WT = tile_constants()
+
+
+def word_tile_plan(rows, cols, x, l, in_stride, pitch, keep):
+    """word_tile_plan of csrc/relayout.cu: whole matrices, or all X rows of
+    a run of lanes, or a run of rows of one lane; about WT_WORDS words and
+    at most WT_CAP."""
+    words, cap = WT["WT_WORDS"], WT["WT_CAP"]
+    xt, lt, mt = x, l, 1
+    if x * l <= cap:
+        mt = min(cols, words // (x * l) if x * l <= words else 1)
+    elif x <= cap:
+        lt = min(-(-l // -(-(x * l) // words)), cap // x)
+    else:
+        xt, lt = -(-x // -(-x // words)), 1
+    return dict(rows=rows, cols=cols, in_stride=in_stride, pitch=pitch,
+                keep=keep, X=x, L=l, xt=xt, lt=lt, mt=mt,
+                tiles_x=-(-x // xt), tiles_l=-(-l // lt),
+                tiles_m=-(-cols // mt))
+
+
+class Memory:
+    """Device memory in words: ``data`` placed at word address ``base``;
+    every read and write is checked against the tensor's bounds and
+    counted, and each 16-byte access against its alignment."""
+
+    def __init__(self, data, base):
+        self.data, self.base = data, base
+        self.writes = np.zeros(data.size, np.int32)
+
+    def index(self, addr, vector=False):
+        addr = np.asarray(addr)
+        if vector:
+            assert (addr % 4 == 0).all(), "unaligned 16-byte access"
+            addr = (addr[..., None] + np.arange(4)).reshape(-1)
+        i = addr - self.base
+        assert ((i >= 0) & (i < self.data.size)).all(), "outside the tensor"
+        return i
+
+    def load(self, addr, vector=False):
+        return self.data[self.index(addr, vector)]
+
+    def store(self, addr, values, vector=False):
+        i = self.index(addr, vector)
+        self.data[i] = values
+        np.add.at(self.writes, i, 1)
+
+
+def word_tile_walk(src: Memory, dst: Memory, q, mutate=None):
+    """relayout_word_tile_kernel in numpy, a block (a tile) at a time with
+    its threads as a vector: returns the worst bank conflict (distinct
+    words in one bank) of the warps' scattered shared-memory stores.
+    ``mutate`` breaks one step, as a wrong kernel would."""
+    threads, inflight = WT["WT_THREADS"], WT["WT_IN_FLIGHT"]
+    tid = np.arange(threads)
+    worst = 1
+    nblocks = q["rows"] * q["tiles_m"] * q["tiles_l"] * q["tiles_x"]
+    for b in range(nblocks):
+        tx = b % q["tiles_x"]
+        b //= q["tiles_x"]
+        tl = b % q["tiles_l"]
+        b //= q["tiles_l"]
+        tm, row = b % q["tiles_m"], b // q["tiles_m"]
+        x0 = tx * q["xt"]
+        xc = min(q["xt"], q["X"] - x0)
+        l0 = tl * q["lt"]
+        lc = min(q["lt"], q["L"] - l0)
+        c0 = tm * q["mt"]
+        mc = min(q["mt"], q["cols"] - c0)
+        col0 = (c0 * q["L"] + l0) * q["X"] + x0
+        keep = min(mc * lc * xc, q["keep"] - col0)
+        if keep <= 0:
+            continue
+        out = dst.base + row * q["pitch"] + col0
+        head = out % 4
+        srcw = (src.base + (row * q["cols"] + c0) * q["in_stride"]
+                + x0 * q["L"] + l0)
+        aligned = ((mc == 1 or q["in_stride"] % 4 == 0)
+                   and (xc == 1 or q["L"] % 4 == 0))
+        kc = (srcw % 4 + lc + 3) >> 2 if aligned else (lc + 6) >> 2
+        g = min(32, xc & -xc)
+        lg, rows_g = g.bit_length() - 1, xc // g
+        rot = ((tid & 31) // max(8, g)) & 3
+        items = mc * xc * kc
+        s = np.zeros(WT["WT_CAP"] + 4, np.uint32)
+        for base in range(0, items, threads * inflight):
+            loaded = []
+            for r in range(inflight):
+                f = base + r * threads + tid
+                rg = (f >> lg) // kc
+                k = (f >> lg) - rg * kc
+                m = rg // rows_g
+                x = (rg - m * rows_g) * g + (f & (g - 1))
+                piece = srcw + m * q["in_stride"] + x * q["L"]
+                lt = 4 * k - piece % 4
+                p = (m * lc + lt) * xc + x
+                live = (f < items) & (lt < lc) & (p < keep)
+                chunk = piece + lt
+                whole = live & (lt >= 0) & (lt + 4 <= lc)
+                v = np.zeros((threads, 4), np.uint32)
+                if whole.any():
+                    v[whole] = src.load(chunk[whole], vector=True).reshape(
+                        -1, 4)
+                for i in range(4):
+                    one = live & ~whole & (lt + i >= 0) & (lt + i < lc)
+                    if mutate == "load loses the head word" and i == 3:
+                        one &= lt >= 0
+                    v[one, i] = src.load(chunk[one] + i)
+                loaded.append((live, lt, p + head, v))
+            for r, (live, lt, pos, v) in enumerate(loaded):
+                for i in range(4):
+                    w = (i + rot) & 3
+                    if mutate == "no rotation":
+                        w = np.full(threads, i)
+                    ltw, p = lt + w, pos + w * xc
+                    ok = live & (ltw >= 0) & (ltw < lc) & (p - head < keep)
+                    s[p[ok]] = v[ok, w[ok]]
+                    for warp in range(threads // 32):
+                        lane = ok[warp * 32:(warp + 1) * 32]
+                        addr = np.unique(p[warp * 32:(warp + 1) * 32][lane])
+                        if addr.size:
+                            worst = max(worst,
+                                        np.bincount(addr % 32).max())
+        chunks = (head + keep + 3) >> 2
+        c = np.arange(chunks)
+        p = 4 * c - head
+        full = (p >= 0) & (p + 4 <= keep)
+        if mutate == "store drops the tail":
+            keep -= 1
+        if full.any():
+            dst.store(out - head + 4 * c[full],
+                      s[(4 * c[full])[:, None] + np.arange(4)].reshape(-1),
+                      vector=True)
+        for i in range(4):
+            one = ~full & (p + i >= 0) & (p + i < keep)
+            dst.store(out + p[one] + i, s[4 * c[one] + i])
+    return worst
+
+
+def place(a: np.ndarray, offset: int, extra: int = 0):
+    """``a`` flattened into device memory at a word address that is
+    ``offset`` words past a 16-byte boundary."""
+    return Memory(np.concatenate([a.reshape(-1), np.zeros(extra, np.uint32)]),
+                  4096 + offset)
+
+
+def interleave_walk(a, n, x, l, in_stride, in_off, out_off, mutate=None):
+    src = place(a, in_off)
+    dst = Memory(np.zeros(n * x * l, np.uint32), 8192 + out_off)
+    q = word_tile_plan(1, n, x, l, in_stride, n * x * l, n * x * l)
+    worst = word_tile_walk(src, dst, q, mutate)
+    return dst, worst
+
+
+@pytest.mark.parametrize("l", [1, 126, 130])
+@pytest.mark.parametrize("x", [1, 2, 3, 12, 64, 65])
+def test_word_tile_walk_equals_numpy(x, l):
+    """The word tile's index arithmetic, for input and output 0 to 3 words
+    past a 16-byte boundary, contiguous and a ragged batch stride apart:
+    every output word written once, every 16-byte access aligned, no read
+    or write outside its tensor, and the result the JAX tool's ``want``."""
+    n = 3
+    for stride in (x * l, x * l + 5):
+        a = random_u32(n * stride, seed=x * 1000 + l)
+        mats = np.lib.stride_tricks.as_strided(
+            a, (n, x, l), (stride * 4, l * 4, 4))
+        want = mats.transpose(0, 2, 1).reshape(-1)
+        for in_off in range(4):
+            for out_off in range(4):
+                dst, _ = interleave_walk(a[:(n - 1) * stride + x * l], n, x,
+                                         l, stride, in_off, out_off)
+                assert (dst.writes == 1).all()
+                assert np.array_equal(dst.data, want)
+
+
+def test_word_tile_walk_over_the_widest_rows_and_the_plan():
+    """X past WT_CAP splits the rows; the plan's three forms, tiles of near
+    equal size, never more than WT_CAP words, and every chunk of a thread's
+    loads in flight at once at the probe's shapes."""
+    words, cap = WT["WT_WORDS"], WT["WT_CAP"]
+    x, l, n = cap + 3, 3, 2
+    a = random_u32((n, x, l), 3)
+    dst, _ = interleave_walk(a, n, x, l, x * l, 1, 2)
+    assert (dst.writes == 1).all()
+    assert np.array_equal(dst.data, a.transpose(0, 2, 1).reshape(-1))
+    for (x, l, cols), (xt, lt, mt) in [
+            ((3, 128, 4096), (3, 128, words // 384)),
+            ((16, 130, 4096), (16, 130, 1)),
+            ((16, 260, 4096), (16, 87, 1)),
+            ((64, 32, 4096), (64, 32, 1)),
+            ((cap + 3, 3, 2), (-(-(cap + 3) // 2), 1, 1)),
+            ((16, 128, 1), (16, 128, 1))]:
+        q = word_tile_plan(1, cols, x, l, x * l, 0, 0)
+        assert (q["xt"], q["lt"], q["mt"]) == (xt, lt, mt)
+        assert q["xt"] * q["lt"] * q["mt"] <= cap
+    capacity = WT["WT_THREADS"] * WT["WT_IN_FLIGHT"]
+    for x, l, mt in [(3, 128, 5), (16, 128, 1), (16, 130, 1), (64, 32, 1)]:
+        assert mt * x * ((l + 6) // 4) <= capacity  # chunks of any offset
+
+
+@pytest.mark.parametrize("x,l,in_off", [(1, 128, 0), (2, 128, 1),
+                                        (3, 128, 0), (5, 128, 0),
+                                        (12, 128, 0), (16, 128, 1),
+                                        (16, 130, 0), (64, 32, 3)])
+def test_word_tile_scatter_is_free_of_bank_conflicts(x, l, in_off):
+    """The scattered shared-memory stores of each warp fall in 32 distinct
+    banks wherever a warp's chunks lie in one group of g rows of one
+    alignment (whole rows of whole vectors, as at X = 3 and the probe's
+    shapes, or rows of 16 and 64 at any offset), for odd and even X; without
+    the lane rotation they would not. A warp that spans two row groups of
+    unlike alignment may find a bank twice or three times."""
+    n = 4
+    a = random_u32((n, x, l), 5)
+    _, worst = interleave_walk(a, n, x, l, x * l, in_off, 0)
+    assert worst == 1
+    for l2, off2 in ((l + 2, 1), (l - 1, 3)):
+        b = random_u32((n, x, l2), 6)
+        assert interleave_walk(b, n, x, l2, x * l2, off2, 0)[1] <= 3
+    if x in (1, 2, 16):
+        _, worst = interleave_walk(a, n, x, l, x * l, in_off, 0,
+                                   mutate="no rotation")
+        assert worst > 1
+
+
+SWAP_CASES = [
+    # x, n_tr, rt, n_tc, h, w
+    (16, 2, 8, 2, 13, 3840),   # the 4K slab's shape, rows cut mid-tile
+    (16, 2, 8, 2, 16, 2100),   # columns cut inside the second tile
+    (8, 1, 8, 3, 5, 2052),
+    (4, 2, 4, 2, 7, 516),
+    (32, 1, 4, 1, 3, 4092),
+]
+
+
+def swap_want(slab, x, h, w):
+    n_tr, rt, cols = slab.shape
+    n_tc = cols // (x * 128)
+    return (slab.reshape(n_tr * rt, n_tc, x, 128).transpose(0, 1, 3, 2)
+            .reshape(n_tr * rt, cols)[:h, :w].reshape(-1))
+
+
+def swap_vec_walk(src: Memory, dst: Memory, x, h, w, n_tc, mutate=None):
+    """relayout_interleave_vec_kernel<Idx, true> (P2's vector route) in
+    numpy, all threads at once: thread t owns the 4 x 4 block (x4, l4) of
+    matrix m = (row, column); rows at or past h are not launched, vectors
+    at or past column w not stored."""
+    lxq = (x // 4).bit_length() - 1
+    per = (128 >> 2) << lxq
+    t = np.arange(h * n_tc * per)
+    m, r = t // per, t % per
+    x4, l4 = (r & ((1 << lxq) - 1)) * 4, (r >> lxq) * 4
+    row, c = m // n_tc, m % n_tc
+    col = (c * 128 + l4) * x + x4
+    live = col < w if mutate != "no crop" else col >= 0
+    srcw = src.base + m * x * 128 + x4 * 128 + l4
+    v = [src.load(srcw[live] + i * 128, vector=True).reshape(-1, 4)
+         for i in range(4)]
+    for k in range(4):
+        ok = k * x < w - col[live]
+        if mutate == "no crop":
+            ok |= True
+        vals = np.stack([v[i][:, k] for i in range(4)], 1)[ok]
+        dst.store(dst.base + row[live][ok] * w + col[live][ok] + k * x,
+                  vals.reshape(-1), vector=True)
+
+
+@pytest.mark.parametrize("x,n_tr,rt,n_tc,h,w", SWAP_CASES)
+def test_swap_crop_vector_walk_equals_numpy(x, n_tr, rt, n_tc, h, w):
+    slab = random_u32((n_tr, rt, n_tc * x * 128), seed=x + w)
+    assert R.swap_crop_route(4096 * 4, 8192 * 4, x, w) == "vec"
+    src, dst = place(slab, 0), Memory(np.zeros(h * w, np.uint32), 8192)
+    swap_vec_walk(src, dst, x, h, w, n_tc)
+    assert (dst.writes == 1).all()
+    assert np.array_equal(dst.data, swap_want(slab, x, h, w))
+    # without the crop it writes past rows' ends, over the next rows' words
+    with pytest.raises(AssertionError):
+        dst = Memory(np.zeros(h * w, np.uint32), 8192)
+        swap_vec_walk(src, dst, x, h, w, n_tc, mutate="no crop")
+        assert (dst.writes == 1).all()
+
+
+@pytest.mark.parametrize("x,n_tr,rt,n_tc,h,w", SWAP_CASES + [
+    (16, 2, 8, 2, 13, 3838), (3, 2, 4, 2, 7, 700), (12, 1, 5, 1, 5, 1535)])
+def test_swap_crop_word_walk_equals_numpy(x, n_tr, rt, n_tc, h, w):
+    """P2's word route: the word tile over the slab's [X, 128] tiles into
+    rows of pitch w, from slab and raster 0 to 3 words past a boundary."""
+    slab = random_u32((n_tr, rt, n_tc * x * 128), seed=x + w + 1)
+    want = swap_want(slab, x, h, w)
+    for in_off, out_off in [(0, 0), (1, 2), (3, 1), (2, 3)]:
+        src = place(slab, in_off)
+        dst = Memory(np.zeros(h * w, np.uint32), 8192 + out_off)
+        q = word_tile_plan(h, n_tc, x, 128, x * 128, w, w)
+        word_tile_walk(src, dst, q)
+        assert (dst.writes == 1).all()
+        assert np.array_equal(dst.data, want)
+
+
+@pytest.mark.parametrize("mutate", ["load loses the head word",
+                                    "store drops the tail"])
+def test_a_mutated_word_tile_walk_fails(mutate):
+    x, l, n = 3, 130, 3
+    a = random_u32((n, x, l), 9)
+    with pytest.raises(AssertionError):
+        dst, _ = interleave_walk(a, n, x, l, x * l, 1, 1, mutate=mutate)
+        assert (dst.writes == 1).all()
+        assert np.array_equal(dst.data, a.transpose(0, 2, 1).reshape(-1))
+
+
+SWAP_ROUTES = [
+    # slab_ptr, out_ptr, x, width, route
+    (A, A, 16, 3840, "vec"),            # the 4K slab
+    (A, A, 16, 3838, "word"),           # rows of no whole vectors
+    (A + 4, A, 16, 3840, "word"),       # slab one word off
+    (A, A + 8, 16, 3840, "word"),       # raster two words off
+    (A + 16, A + 32, 16, 3840, "vec"),
+    (A, A, 4, 512, "vec"), (A, A, 8, 1024, "vec"), (A, A, 32, 4096, "vec"),
+    (A, A, 3, 384, "word"),             # X no power of two
+    (A, A, 12, 1536, "word"),
+    (A, A, 64, 8192, "word"),           # X over 32
+    (A, A, 2, 256, "word"), (A, A, 1, 128, "word"),
+    (A, A, 16, 4, "vec"),               # one vector a row
+]
+
+
+@pytest.mark.parametrize("slab_ptr,out_ptr,x,width,route", SWAP_ROUTES)
+def test_swap_crop_route_is_a_function_of_pointers_x_and_width(
+        slab_ptr, out_ptr, x, width, route):
+    assert R.swap_crop_route(slab_ptr, out_ptr, x, width) == route
+
+
+def test_swap_crop_route_of_real_tensors():
+    slab = torch.zeros(2 * 8 * 4096 + 8, dtype=torch.int32)
+    slab = slab[(-slab.data_ptr() // 4) % 4:]
+    out = torch.zeros(16 * 3840 + 8, dtype=torch.int32)
+    out = out[(-out.data_ptr() // 4) % 4:]
+    assert R.swap_crop_route(slab.data_ptr(), out.data_ptr(), 16, 3840) == "vec"
+    assert R.swap_crop_route(slab[1:].data_ptr(), out.data_ptr(), 16,
+                             3840) == "word"
+    assert R.swap_crop_route(slab.data_ptr(), out[3:].data_ptr(), 16,
+                             3840) == "word"
+    assert R.swap_crop_route(slab.data_ptr(), out.data_ptr(), 16,
+                             3838) == "word"
