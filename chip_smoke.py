@@ -25,7 +25,12 @@ decode, each kernel against its plain version, and the copy, the
 interleave and the swap and crop at aligned and misaligned pointers and
 ragged sizes, each on the kernel its route function names, timed beside
 torch's clone(), transpose(-1, -2).contiguous() and the swap's reshape,
-transpose and crop. Any failure exits non-zero. The default
+transpose and crop. Then the validation tool in its quick form
+(compeg_tpu_torch/tools/validate.py): streams of every sampling, restart
+interval and a grid of odd sizes, made by the port's encoder, in every
+decode mode of the port against the port's golden decoder, and a short
+soak of garbage entropy bits, scan bytes and header bytes. Any failure
+exits non-zero. The default
 decode of the 4K frame must equal golden's byte for byte (its sha256), the
 small rasters must take both the
 16-byte and the word-wise store of the RGBA kernels and the 16-byte, 8-byte
@@ -35,11 +40,12 @@ kernel so that they run back to back, divided by their number. The
 last three lines are the kernels JSON, the card's nvidia-smi
 name and power limit, and the result JSON. Needs one CUDA device.
 
-It imports compeg_tpu_torch, which stands on its own host layer, and neither
-jax nor anything of the JAX package compeg_tpu (checked in sys.modules at
-the end), and runs no golden or encoder code: golden's answers come from
-compeg_tpu_torch/testdata/smoke.npz, which tests/test_torch_smoke_vectors.py
-writes and checks on the CPU.
+It imports compeg_tpu_torch, which stands on its own host layer, golden
+decoder and encoder included, and neither jax nor anything of the JAX
+package compeg_tpu (checked in sys.modules at the end). The fixed streams'
+answers and the 4K frame's come from compeg_tpu_torch/testdata/smoke.npz,
+which tests/test_torch_smoke_vectors.py writes and checks on the CPU; the
+validation tool computes its own with the port's golden decoder.
 """
 
 from __future__ import annotations
@@ -136,7 +142,7 @@ def main() -> int:
     from compeg_tpu_torch.ops import int_idct as I
     from compeg_tpu_torch.ops import relayout as R
     from compeg_tpu_torch.pipeline import Decoder
-    from compeg_tpu_torch.tools import exp_relayout
+    from compeg_tpu_torch.tools import exp_relayout, validate
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain IDCT in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -959,42 +965,51 @@ def main() -> int:
         "relayout_spread_merge (and the copy) == their plain versions at "
         "the probes' shapes (exact)")
     del x5, slab
-    # The copy where its 16-byte kernel runs and where the word-wise one
+    # The copy where its 16-byte kernel runs and where the shift kernel
     # does, against its plain version (torch's clone), and its time beside
-    # clone's, alternating two inputs so that none waits in the L2 cache.
+    # clone's and its bound, alternating two inputs so that none waits in
+    # the L2 cache.
     words = 2160 * 3840
     bases = [torch.randint(0, 1 << 24, (words + 8,), dtype=torch.int32,
                            device="cuda") for _ in range(2)]
     views = {
         "aligned": (lambda b: b[:words].reshape(2160, 3840), "vec"),
         "one word off": (lambda b: b[1:1 + words].reshape(2160, 3840),
-                         "word"),
-        "4,095 words": (lambda b: b[:4095].reshape(1, 4095), "word"),
+                         "shift"),
+        "4,095 words": (lambda b: b[:4095].reshape(1, 4095), "shift"),
         "strided rows": (lambda b: b[:words].reshape(2160, 3840)[:, :3836],
                          "vec"),
         "strided rows, ragged": (
-            lambda b: b[:words].reshape(2160, 3840)[:, 1:3838], "word"),
+            lambda b: b[:words].reshape(2160, 3840)[:, 1:3838], "shift"),
     }
-    copy_ms = {}
+    copy_ms, shift_launches, shift_err = {}, 0, 0
     for name, (view, want_route) in views.items():
         a = view(bases[0])
         got, copy_counts = drive(lambda: R.relayout_copy(a))
         route = R.spread_merge_route(a.data_ptr(), got.data_ptr(), *a.shape,
                                      1, a.stride(0))
         err = int((got - a.clone()).abs().max())
-        rl_err["spread_merge"] = max(rl_err["spread_merge"], err)
-        require(route == want_route and copy_counts["spread_merge"] == 1
-                and err == 0 and got.is_contiguous(),
+        key = "copy_shift" if want_route == "shift" else "spread_merge"
+        if key == "copy_shift":
+            shift_launches += copy_counts[key]
+            shift_err = max(shift_err, err)
+        else:
+            rl_err["spread_merge"] = max(rl_err["spread_merge"], err)
+        require(route == want_route and copy_counts[key] == 1
+                and sum(copy_counts.values()) == 1 and err == 0
+                and got.is_contiguous(),
                 f"the copy, {name}: route {route} (expected {want_route}), "
-                f"launches {copy_counts['spread_merge']}, max |diff| {err}")
+                f"launches {copy_counts} (expected one of {key}), max |diff| "
+                f"{err}")
         copy_ms[name] = (
             exp_relayout.cuda_ms(lambda i: R.relayout_copy(view(bases[i % 2])),
                                  REPS),
-            exp_relayout.cuda_ms(lambda i: view(bases[i % 2]).clone(), REPS))
+            exp_relayout.cuda_ms(lambda i: view(bases[i % 2]).clone(), REPS),
+            2 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3, route)
         log(f"(i) the copy, {name} ({route} kernel, {a.numel() * 4} B): == "
             f"clone(); {copy_ms[name][0]:.4f} ms, clone() "
-            f"{copy_ms[name][1]:.4f} ms (medians of {REPS} bursts of "
-            f"{exp_relayout.BURST}) on {card}")
+            f"{copy_ms[name][1]:.4f} ms, bound {copy_ms[name][2]:.4f} ms "
+            f"(medians of {REPS} bursts of {exp_relayout.BURST}) on {card}")
     del bases
     # The interleave on the kernel its route names: the 16-byte kernel at
     # the probe's shape, the word kernel where vectors do not fit; each
@@ -1075,6 +1090,16 @@ def main() -> int:
             f"{swap_ms[name][2]:.4f} ms (medians of {REPS} bursts of "
             f"{exp_relayout.BURST}) on {card}")
     del slabs
+
+    # ---- (j) the validation tool ------------------------------------------------
+    # Streams from the port's own encoder in every mode of the port, held to
+    # the port's own golden decoder, and a short corruption soak: every check
+    # must print OK (a FAIL makes its exit status 1).
+    t0 = time.perf_counter()
+    rc = validate.main(["--quick"])
+    log(f"(j) python -m compeg_tpu_torch.tools.validate --quick: exit {rc} "
+        f"in {time.perf_counter() - t0:.1f} s on {card}")
+    require(rc == 0, "the validation tool found a failure (its FAIL lines)")
 
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
@@ -1173,10 +1198,26 @@ def main() -> int:
                            ms_library_ms_bound_ms_route=swap_ms),
             relayout_entry("relayout_stack_kernel (P3)", "stack",
                            "tools/exp_assembly2.py:51", "P3 sublane stack"),
-            relayout_entry("relayout_spread_merge_kernel (P4)",
+            relayout_entry("relayout_copy_vec_kernel, "
+                           "relayout_spread_merge_vec_kernel and "
+                           "relayout_spread_merge_kernel (P4)",
                            "spread_merge", "tools/exp_mosaic_bisect.py:23",
                            "P1 copy floor",
-                           copy_ms_and_clone_ms=copy_ms),
+                           ms_clone_ms_bound_ms_route={
+                               k: v for k, v in copy_ms.items()
+                               if v[3] == "vec"}),
+            # Its launches: the copies of the three views that take it, each
+            # driven with the counts zeroed; its times one word off.
+            {"name": "relayout_copy_shift_kernel (P4's copy, shift route)",
+             "route": "cuda", "source": RELAYOUT_SOURCE,
+             "replaces": "tools/exp_mosaic_bisect.py:23",
+             "launches": shift_launches, "max_abs_err": shift_err,
+             "ms": copy_ms["one word off"][0],
+             "plain_ms": copy_ms["one word off"][1],
+             "bound_ms": copy_ms["one word off"][2], "bound_by": "bytes",
+             "library_ms": copy_ms["one word off"][1],
+             "ms_clone_ms_bound_ms_route": {
+                 k: v for k, v in copy_ms.items() if v[3] == "shift"}},
         ],
     }))
     leaked = [m for m in sys.modules

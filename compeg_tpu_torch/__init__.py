@@ -19,8 +19,11 @@ Public API (mirroring compeg_tpu's fused decode):
     decode_rgb            — one-shot decode to an [H, W, 3] u8 array
     decode_rgba           — one-shot decode to an [H, W, 4] u8 array
     CompegError           — the single error type
+    golden                — the CPU reference decoder the kernels are held to
+    encoder               — a baseline JPEG encoder for test streams
 """
 
+from . import encoder, golden
 from .batch import BatchDecoder, StreamDecoder
 from .errors import CompegError
 from .metadata import ImageData, analyze
@@ -37,4 +40,6 @@ __all__ = [
     "FrameGeometry",
     "decode_rgb",
     "decode_rgba",
+    "golden",
+    "encoder",
 ]

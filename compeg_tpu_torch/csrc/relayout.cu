@@ -26,7 +26,8 @@
 //       spread, and with X = 1 the plain copy, the store-bandwidth floor of
 //       the probes (copy_kernel, exp_interleave.py:56; copy_epilogue_kernel,
 //       exp_assembly2.py:44). Its vector forms are relayout_copy_vec_kernel
-//       and relayout_spread_merge_vec_kernel.
+//       and relayout_spread_merge_vec_kernel; the copy of views they do not
+//       fit is relayout_copy_shift_kernel.
 //
 // The Pallas probes asked which of many formulations of one permutation
 // (repeat + mask, tree interleave, strided stores) the TPU's compiler could
@@ -53,12 +54,14 @@
 // the output span in shared memory, and the span stored in aligned 16-byte
 // vectors with words only at its ends, whatever the alignment of either
 // side. The stack moves 16-byte vectors where the row length allows. The
-// copy moves 16-byte vectors with several loads of each thread in flight
-// before its first store, from a grid sized to the card, and the spread and
-// merge write 16-byte vectors; all three index in 32 bits when the sizes fit
-// and divide only where rows are strided or X is no power of two. The
-// word-per-thread spread and merge remain for pointers and lengths that
-// vectors do not fit (ops/relayout.spread_merge_route).
+// copy moves 16-byte vectors, several loads of each thread in flight before
+// its first store on a large copy, from a grid sized to the card, whatever
+// the alignment of its views (the shift route: aligned chunks of the input
+// shifted by the row's word offset), and the spread and merge write 16-byte
+// vectors; all index in 32 bits when the sizes fit and divide only where
+// rows are strided or X is no power of two. The word-per-thread spread and
+// merge remain for pointers and lengths that vectors do not fit
+// (ops/relayout.spread_merge_route).
 
 #include <cuda_runtime.h>
 
@@ -321,9 +324,9 @@ relayout_stack_kernel(const T* __restrict__ in, T* __restrict__ out,
   out[i] = in[((g * p.sr + sr) * p.x + x) * lv + v];
 }
 
-// The spread, merge and copy, a word per thread: for pointers or lengths that
-// 16-byte vectors do not fit. Idx is 32 bits wide whenever the word counts
-// fit it.
+// The spread and merge (X > 1), a word per thread: for pointers or lengths
+// that 16-byte vectors do not fit. Idx is 32 bits wide whenever the word
+// counts fit it.
 template <class Idx>
 __global__ void __launch_bounds__(256)
 relayout_spread_merge_kernel(const uint32_t* __restrict__ a,
@@ -340,6 +343,8 @@ relayout_spread_merge_kernel(const uint32_t* __restrict__ a,
   out[i] = k == 0 ? a[src] : b[src];
 }
 
+// Vectors a thread of a large copy has in flight, all loaded before the
+// first is stored.
 constexpr int COPY_IN_FLIGHT = 4;
 
 // The copy (X = 1) in 16-byte vectors: `rows` rows of `lv` vectors,
@@ -365,6 +370,124 @@ relayout_copy_vec_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     for (int k = 0; k < COPY_IN_FLIGHT; ++k) {
       const Idx i = v + k * step;
       if (i < total) out[i] = r[k];
+    }
+  }
+}
+
+// The four words that start D words into chunk a and run on into chunk b.
+template <int D>
+__device__ __forceinline__ uint4 shift_words(const uint4& a, const uint4& b) {
+  if (D == 0) return a;
+  if (D == 1) return make_uint4(a.y, a.z, a.w, b.x);
+  if (D == 2) return make_uint4(a.z, a.w, b.x, b.y);
+  return make_uint4(a.w, b.x, b.y, b.z);
+}
+
+// One row of the shift route: the n words at src to dst, whose first `head`
+// words lie before dst's first 16-byte boundary, the input D words further
+// on than the output from a boundary. Output vector q holds the row's words
+// 4q - head .. 4q - head + 3; where all four are the row's (q in [qa, qb))
+// they are the last 4 - D words of aligned input chunk q (counted from
+// src - head - D) and the first D of chunk q + 1. A lane loads its chunk q
+// whole and takes the D words it needs of chunk q + 1 from the next lane,
+// which loaded it as its own first (__shfl_down_sync); the warp's last lane,
+// and a lane whose next vector is not the row's, loads chunk q + 1 itself.
+// Every chunk loaded holds a word of the row. The row's first and last
+// vectors (at most three words each) are read and written word by word. A
+// lane takes F vectors `step` apart, all loaded before the first is stored;
+// the loop is the warp's, for the shuffles.
+template <int D, int F, class Idx>
+__device__ __forceinline__ void shift_row(const uint32_t* __restrict__ src,
+                                          uint32_t* __restrict__ dst, Idx n,
+                                          int head, Idx v0, Idx step) {
+  const uint4* in4 = reinterpret_cast<const uint4*>(src - head - D);
+  uint4* out4 = reinterpret_cast<uint4*>(dst - head);
+  const Idx nv = (n + head + 3) >> 2, qa = head != 0, qb = (n + head) >> 2;
+  const int lane = threadIdx.x & 31;
+  for (Idx v = v0 - lane; v < nv; v += F * step) {
+    uint4 lo[F], hi[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const Idx q = v + lane + k * step;
+      lo[k] = hi[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (q >= qa && q < qb) {
+        lo[k] = in4[q];
+        if (D && (lane == 31 || q + 1 >= qb)) hi[k] = in4[q + 1];
+      } else if (q < nv) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Idx at = 4 * q - head + i;
+          w[i] = at >= 0 && at < n ? src[at] : 0u;
+        }
+        lo[k] = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const Idx q = v + lane + k * step;
+      // The next lane's chunk: only its first D words are needed.
+      const bool next = lane < 31 && q + 1 < qb;
+      if (D >= 1) {
+        const uint32_t t = __shfl_down_sync(0xffffffffu, lo[k].x, 1);
+        if (next) hi[k].x = t;
+      }
+      if (D >= 2) {
+        const uint32_t t = __shfl_down_sync(0xffffffffu, lo[k].y, 1);
+        if (next) hi[k].y = t;
+      }
+      if (D >= 3) {
+        const uint32_t t = __shfl_down_sync(0xffffffffu, lo[k].z, 1);
+        if (next) hi[k].z = t;
+      }
+      if (q >= qa && q < qb) {
+        out4[q] = shift_words<D>(lo[k], hi[k]);
+      } else if (q < nv) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const Idx at = 4 * q - head + i;
+          if (at >= 0 && at < n) dst[at] = word_of(lo[k], i);
+        }
+      }
+    }
+  }
+}
+
+// The copy (X = 1) where relayout_copy_vec_kernel does not fit: the shift
+// route, for an input or an output off a 16-byte boundary, rows of no whole
+// vectors, or rows a stride of no whole vectors apart. It stands for the
+// probes' copy (copy_kernel, tools/exp_interleave.py:56; run,
+// tools/exp_mosaic_bisect.py:23) on such views.
+//
+// What bounds it: bytes, each input word read once and each output word
+// written once (two 33.2 MB passes at 4K, 0.020 ms at 3.35 TB/s). What the
+// design does about it: every load and store is an aligned 16-byte vector,
+// whatever the alignment of either side, but for at most three words at
+// each end of a row. A row of output (`rows` rows of `l` words, each
+// `in_stride` words after the last in the input; one long row when the input
+// is contiguous) is blockIdx.y's, and within it every output vector is the
+// input's aligned chunks shifted by the row's relative word offset d, which
+// is the same for the whole row: shift_row<d> has no division, no per-word
+// test and no runtime word select on its way, and loads each chunk once (the
+// next lane's by a shuffle). Rows past the grid's height are walked by
+// gridDim.y. F vectors a thread: COPY_IN_FLIGHT on a large copy, 1 on a
+// small one, whose time is the launch's and the code's first fetch.
+template <int F, class Idx>
+__global__ void __launch_bounds__(256)
+relayout_copy_shift_kernel(const uint32_t* __restrict__ in,
+                           uint32_t* __restrict__ out, Idx rows, Idx l,
+                           Idx in_stride) {
+  const Idx v0 = (Idx)blockIdx.x * 256 + threadIdx.x;
+  const Idx step = (Idx)gridDim.x * 256;
+  for (Idx r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint32_t* src = in + r * in_stride;
+    uint32_t* dst = out + r * l;
+    const int head = (int)(((uintptr_t)dst >> 2) & 3);
+    switch ((int)(((uintptr_t)src >> 2) - head) & 3) {
+      case 0: shift_row<0, F, Idx>(src, dst, l, head, v0, step); break;
+      case 1: shift_row<1, F, Idx>(src, dst, l, head, v0, step); break;
+      case 2: shift_row<2, F, Idx>(src, dst, l, head, v0, step); break;
+      default: shift_row<3, F, Idx>(src, dst, l, head, v0, step); break;
     }
   }
 }
@@ -396,15 +519,24 @@ relayout_spread_merge_vec_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-// A grid for `items` work items of a grid-stride kernel: enough blocks for
-// them, at most 16 for each multiprocessor of the current device.
-inline cudaError_t card_grid(long long items, unsigned* blocks) {
+// The most blocks a grid-stride kernel is given: 16 for each multiprocessor
+// of the current device.
+inline cudaError_t card_width(long long* blocks) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *blocks = 16LL * sms;
+  return err;
+}
+
+// A grid for `items` work items of a grid-stride kernel: enough blocks for
+// them, at most the card's width.
+inline cudaError_t card_grid(long long items, unsigned* blocks) {
+  long long width = 0;
+  const cudaError_t err = card_width(&width);
   const long long want = (items + 255) / 256;
-  *blocks = (unsigned)(want < 16LL * sms ? want : 16LL * sms);
+  *blocks = (unsigned)(want < width ? want : width);
   return err;
 }
 
@@ -416,7 +548,26 @@ cudaError_t launch_spread_merge(const void* a, const void* b, void* out,
   const bool flat = p->n == 1 || p->in_stride == p->l;
   const Idx rows = (Idx)(flat ? 1 : p->n);
   unsigned blocks = 0;
-  if (!p->vec) {
+  if (!p->vec && p->x == 1) {
+    // A row's vectors (its head's included) across the grid's width, a row
+    // a blockIdx.y: one vector a thread while the card's width holds the
+    // whole copy that way, COPY_IN_FLIGHT a thread past it.
+    const long long l = flat ? total : p->l, nv = (l + 6) / 4;
+    long long width = 0;
+    const cudaError_t err = card_width(&width);
+    if (err != cudaSuccess) return err;
+    const bool large = nv * rows > width * 256;
+    const long long per = large ? COPY_IN_FLIGHT : 1;
+    const long long want = (nv + per * 256 - 1) / (per * 256);
+    const dim3 grid((unsigned)(want < width ? want : width),
+                    (unsigned)(rows < 65535 ? rows : 65535));
+    if (large)
+      relayout_copy_shift_kernel<COPY_IN_FLIGHT, Idx><<<grid, 256, 0, stream>>>(
+          (const uint32_t*)a, (uint32_t*)out, rows, (Idx)l, (Idx)p->in_stride);
+    else
+      relayout_copy_shift_kernel<1, Idx><<<grid, 256, 0, stream>>>(
+          (const uint32_t*)a, (uint32_t*)out, rows, (Idx)l, (Idx)p->in_stride);
+  } else if (!p->vec) {
     relayout_spread_merge_kernel<Idx><<<blocks_of(total, 256), 256, 0, stream>>>(
         (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, (Idx)p->n,
         (Idx)p->l, (Idx)p->x, (Idx)p->in_stride);
@@ -503,7 +654,8 @@ int compeg_relayout_stack(const void* in, void* out, const RelayoutParams* p,
 
 // out[s, l * X + k] = (k == 0 ? a : b)[s * in_stride + l], s < n. With
 // p->vec the caller vouches for what the 16-byte kernels need
-// (ops/relayout.spread_merge_route).
+// (ops/relayout.spread_merge_route); without it a copy (X = 1) takes the
+// shift kernel and a spread or merge the word kernel.
 int compeg_relayout_spread_merge(const void* a, const void* b, void* out,
                                  const RelayoutParams* p, void* stream) {
   const long long total = p->n * p->l * p->x;

@@ -39,10 +39,11 @@ NVCC_FLAGS = (
 )
 
 # One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s, then the four
-# relayout kernels. A batch of B frames is one launch and adds one.
+# relayout kernels, the copy's shift route apart from P4's other kernels. A
+# batch of B frames is one launch and adds one.
 LAUNCHES = {"entropy": 0, "fused": 0, "fused_exact": 0, "planes": 0,
             "scaled": 0, "interleave": 0, "swap_crop": 0, "stack": 0,
-            "spread_merge": 0}
+            "spread_merge": 0, "copy_shift": 0}
 
 # C entry points and their number of tensor arguments (data pointers
 # before the params struct and the stream; csrc/decode.cu, csrc/relayout.cu).

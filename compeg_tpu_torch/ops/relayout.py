@@ -18,8 +18,9 @@ compute is one hand-written kernel:
 * :func:`relayout_spread_merge`: ``out[s, l * X + k] = (a if k == 0 else
   b)[s, l]``; :func:`relayout_spread` (``b = a``) and :func:`relayout_copy`
   (``X = 1``, the store-bandwidth floor) are its special cases. It has
-  16-byte vector kernels and a word-per-thread kernel;
-  :func:`spread_merge_route` picks between them from pointers, strides and
+  16-byte vector kernels, the copy's shift kernel for views they do not fit
+  and a word-per-thread kernel for the spread and merge;
+  :func:`spread_merge_route` picks among them from pointers, strides and
   lengths.
 
 Tensors are int32 (the same bits as the probes' u32). A CUDA tensor launches
@@ -231,22 +232,26 @@ def relayout_spread_merge_reference(a: torch.Tensor, b: torch.Tensor,
 
 def spread_merge_route(a_ptr: int, out_ptr: int, n: int, l: int, x: int,
                        in_stride: int) -> str:
-    """Which kernels a spread, merge or copy takes, from its pointers (byte
-    addresses), shape and row stride alone: ``"vec"``, the 16-byte kernels,
-    or ``"word"``, the word-per-thread kernel.
+    """Which kernel a spread, merge or copy takes, from its pointers (byte
+    addresses), shape and row stride alone: ``"vec"``, the 16-byte kernels;
+    for a copy (``x == 1``) they do not fit, ``"shift"``, the copy that
+    shifts aligned 16-byte chunks of the input by each row's word offset;
+    for a spread or merge they do not fit, ``"word"``, the word-per-thread
+    kernel.
 
-    The output must start on a 16-byte boundary and hold whole 16-byte
-    vectors: all of it when the input rows are contiguous (``n == 1`` or
-    ``in_stride == l``: one long row), else each of its rows. The copy
-    (``x == 1``) also loads vectors, so its input must start on such a
-    boundary too, with a row stride of whole vectors; a spread or merge
-    reads single words."""
+    The 16-byte kernels need an output that starts on a 16-byte boundary
+    and holds whole 16-byte vectors: all of it when the input rows are
+    contiguous (``n == 1`` or ``in_stride == l``: one long row), else each
+    of its rows. The copy's also loads vectors, so its input must start on
+    such a boundary too, with a row stride of whole vectors; a spread or
+    merge reads single words."""
     flat = n == 1 or in_stride == l
     whole = (n * l * x) % 4 == 0 if flat else (l * x) % 4 == 0
+    fallback = "shift" if x == 1 else "word"
     if out_ptr % 16 or not whole:
-        return "word"
+        return fallback
     if x == 1 and (a_ptr % 16 or (not flat and in_stride % 4)):
-        return "word"
+        return fallback
     return "vec"
 
 
@@ -269,8 +274,9 @@ def relayout_spread_merge(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((s, l * x), dtype=torch.int32, device=a.device)
     route = spread_merge_route(a.data_ptr(), out.data_ptr(), s, l, x,
                                a.stride(0))
-    _launch("compeg_relayout_spread_merge", "spread_merge", a, b, out, n=s,
-            l=l, x=x, in_stride=a.stride(0), vec=int(route == "vec"))
+    _launch("compeg_relayout_spread_merge",
+            "copy_shift" if route == "shift" else "spread_merge", a, b, out,
+            n=s, l=l, x=x, in_stride=a.stride(0), vec=int(route == "vec"))
     return out
 
 

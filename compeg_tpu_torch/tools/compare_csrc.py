@@ -179,10 +179,13 @@ def _stack(rows: torch.Tensor, b: int) -> torch.Tensor:
 
 def relayout_calls(device) -> Dict[str, tuple]:
     """``name -> (fn(lib, i), library)``: the copy of a 4K raster (aligned,
-    and one word off), a strided copy and the 16-fold spread and merge,
-    through each tree's P4 entry point; the interleave at the probe's shape
-    (``[4096, 16, 128]``, 33.5 MB) on the route ``interleave_route`` picks
-    and on the word route, and at the word route's shapes of chip_smoke's
+    and one word off), of its rows strided (whole vectors, and ragged from
+    word 1 to 3837), of 4,095 words, the aligned views also forced onto the
+    shift kernel (a tree before it runs its word kernel there), and the
+    16-fold spread and merge, through each tree's P4 entry point; the
+    interleave at the probe's shape (``[4096, 16, 128]``, 33.5 MB) on the
+    route ``interleave_route`` picks and on the word route, and at the word
+    route's shapes of chip_smoke's
     phase (i) (one word off, X = 3, X = 64, L = 130), through each tree's
     P1 entry point; the swap and crop of the 4K slab (``[34, 64, 4096] ->
     [2160, 3840]``, the vector route) and of the same slab to a width of
@@ -197,7 +200,7 @@ def relayout_calls(device) -> Dict[str, tuple]:
     small = torch.randint(0, 1 << 24, (2, 2160, 240), dtype=torch.int32,
                           device=device)
 
-    def p4(a2, b2, x):
+    def p4(a2, b2, x, vec=None):
         def call(lib, i=0):
             a, b = a2[i % 2], b2[i % 2]
             n, l = a.shape
@@ -207,7 +210,7 @@ def relayout_calls(device) -> Dict[str, tuple]:
             _build.launch("compeg_relayout_spread_merge", a, b, out, lib=lib,
                           params=_build.RelayoutParams(
                               n=n, l=l, x=x, in_stride=a.stride(0),
-                              vec=int(route == "vec")))
+                              vec=int(route == "vec") if vec is None else vec))
             return (out,)
         return call
 
@@ -261,13 +264,22 @@ def relayout_calls(device) -> Dict[str, tuple]:
     mats = [b[:2160 * 3840 // 2048 * 2048].reshape(-1, 16, 128) for b in bigs]
     off = [b[1:1 + 2160 * 3840].reshape(2160, 3840) for b in bigs]
     cols = [g[:, :3836] for g in grid]
+    ragged = [g[:, 1:3838] for g in grid]
+    short = [b[:4095].reshape(1, 4095) for b in bigs]
     clone = lambda i: grid[i % 2].clone()  # noqa: E731
     calls = {
         "copy 33.5 MB": (p4(grid, grid, 1), clone),
+        "copy 33.5 MB, shift kernel": (p4(grid, grid, 1, 0), clone),
         "copy 33.5 MB, one word off": (p4(off, off, 1),
                                        lambda i: off[i % 2].clone()),
         "copy of strided rows": (p4(cols, cols, 1),
                                  lambda i: cols[i % 2].clone()),
+        "copy of strided rows, shift kernel": (p4(cols, cols, 1, 0),
+                                               lambda i: cols[i % 2].clone()),
+        "copy of strided rows, ragged": (p4(ragged, ragged, 1),
+                                         lambda i: ragged[i % 2].clone()),
+        "copy of 4,095 words": (p4(short, short, 1),
+                                lambda i: short[i % 2].clone()),
         "spread x16 to 33.5 MB": (p4([small[0]] * 2, [small[0]] * 2, 16),
                                   None),
         "merge x16 to 33.5 MB": (p4([small[0]] * 2, [small[1]] * 2, 16),

@@ -29,6 +29,10 @@ from compeg_tpu_torch.ops import int_idct as I  # noqa: E402
 from compeg_tpu_torch.ops import luts as L  # noqa: E402
 import compeg_tpu.profiling as JP  # noqa: E402
 import compeg_tpu_torch.profiling as P  # noqa: E402
+from compeg_tpu import golden as JG  # noqa: E402
+from compeg_tpu_torch import encoder as PE  # noqa: E402
+from compeg_tpu_torch import golden as PG  # noqa: E402
+from test_torch_smoke_vectors import zrl_stream  # noqa: E402
 
 STREAMS = [("422", 1, 24, 40), ("420", 3, 40, 72), ("444", None, 16, 24),
            ("gray", 1, 17, 37), ("411", 2, 16, 64), ("440", 5, 32, 24)]
@@ -235,3 +239,82 @@ def test_profiling_stage_stats_behave_like_the_jax_packages(test_image):
     P.hard_sync((cpu, cpu))
     with pytest.raises(RuntimeError, match="CUDA"):
         P.trace_device_ms(lambda: cpu)
+
+
+# -- golden and the encoder ---------------------------------------------------
+
+
+@pytest.mark.parametrize("quality", [60, 88])
+@pytest.mark.parametrize("sampling,ri,h,w", STREAMS)
+def test_encoder_gives_the_same_bytes(sampling, ri, h, w, quality,
+                                      test_image):
+    """The port's encoder against the JAX package's, byte for byte: with
+    tables and restart markers, without DHT (the Annex K defaults), without
+    DRI, and (gray) from a 2-D array without APP0."""
+    img = test_image(h, w, "noise", seed=quality)
+    for extra in ({}, {"emit_dht": False}, {"restart_interval_mcus": None}):
+        kw = {"sampling": sampling, "quality": quality,
+              "restart_interval_mcus": ri, **extra}
+        assert PE.encode(img, **kw) == encoder.encode(img, **kw), extra
+    if sampling == "gray":
+        kw = dict(sampling="gray", quality=quality, app0=False)
+        assert PE.encode(img[..., 1], **kw) == encoder.encode(img[..., 1],
+                                                              **kw)
+    with pytest.raises(CompegError, match="unknown sampling"):
+        PE.encode(img, sampling="421")
+
+
+def same(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("sampling,ri,h,w", STREAMS + [("zrl", 1, 32, 48)])
+def test_golden_gives_the_same_arrays(sampling, ri, h, w, test_image):
+    """The port's golden against the JAX package's, array for array: the
+    coefficients (raw and dequantized, +16 and +17 ZRL), every IDCT of
+    decode_rgb, the compat ZRL, the scaled decodes, 32 retained
+    coefficients, and the component planes."""
+    data = (zrl_stream() if sampling == "zrl"
+            else stream(test_image, sampling, ri, h, w))
+    ours, theirs = M.analyze(data), JM.analyze(data)
+    for dequant in (False, True):
+        for zrl17 in (False, True):
+            assert same(PG.decode_coefficients(ours, dequant, zrl17),
+                        JG.decode_coefficients(theirs, dequant, zrl17))
+    for kw in ({"idct": "float"}, {"idct": "int"}, {"idct": "aan"},
+               {"zrl17": True, "idct": "int"}, {"zrl17": True},
+               {"scale_blocks": 1}, {"scale_blocks": 2}, {"scale_blocks": 4},
+               {"retained_coefficients": 32},
+               {"retained_coefficients": 32, "idct": "int"}):
+        got = PG.decode_rgb(data, **kw)
+        assert same(got, JG.decode_rgb(data, **kw)), kw
+        assert got.shape[:2] == PG.scaled_size(ours, kw.get("scale_blocks",
+                                                            8))
+    assert same(PG.decode_rgb(ours), JG.decode_rgb(theirs))
+    raw = PG.decode_coefficients(ours, dequant=False)
+    for pixels, jpixels, blk in (
+            (PG.idct_pixels_raw(raw, ours), JG.idct_pixels_raw(raw, theirs),
+             8),
+            (PG.idct_pixels_int(raw, ours), JG.idct_pixels_int(raw, theirs),
+             8),
+            (PG.idct_pixels_scaled(raw, ours, 2),
+             JG.idct_pixels_scaled(raw, theirs, 2), 2)):
+        planes = PG.assemble_planes(ours, pixels, blk)
+        jplanes = JG.assemble_planes(theirs, jpixels, blk)
+        assert len(planes) == len(jplanes) == len(ours.components)
+        assert all(same(a, b) for a, b in zip(planes, jplanes))
+    assert same(PG.idct_pixels(raw[:7].astype(np.int32) * 3),
+                JG.idct_pixels(raw[:7].astype(np.int32) * 3))
+
+
+def test_golden_refuses_what_the_jax_packages_refuses(test_image):
+    data = stream(test_image, "422", 1, 16, 16)
+    with pytest.raises(CompegError, match="idct='float' only"):
+        PG.decode_rgb(data, idct="int", scale_blocks=2)
+    with pytest.raises(JaxCompegError, match="idct='float' only"):
+        JG.decode_rgb(data, idct="int", scale_blocks=2)
+    assert PG.huff_extend(5, 3) == JG.huff_extend(5, 3) == 5
+    assert PG.huff_extend(2, 3) == JG.huff_extend(2, 3) == -5
+    ycc = np.random.default_rng(1).integers(0, 256, (3, 9, 11), np.uint8)
+    assert same(PG.ycbcr_to_rgb_reference(*ycc),
+                JG.ycbcr_to_rgb_reference(*ycc))

@@ -27,8 +27,10 @@ import sys
 import numpy as np
 import compeg_tpu_torch as T
 from compeg_tpu_torch import native
-from compeg_tpu_torch.tools import exp_relayout
+from compeg_tpu_torch.tools import exp_relayout, validate
 data = np.load(sys.argv[1]).tobytes()
+assert T.encoder.encode(np.zeros((8, 8, 3), np.uint8), sampling="444")
+assert T.golden.decode_rgb(data).shape == (16, 24, 3)
 outs = [T.Decoder(device="cpu").decode(data),
         T.Decoder(device="cpu", exact_idct=True, fancy_upsampling=True).decode(data),
         T.BatchDecoder(device="cpu").decode([data, data])[1],
@@ -80,7 +82,9 @@ def test_the_scan_covers_the_whole_port():
     for must in ("compeg_tpu_torch/__init__.py", "compeg_tpu_torch/batch.py",
                  "compeg_tpu_torch/native/__init__.py",
                  "compeg_tpu_torch/ops/relayout.py",
-                 "compeg_tpu_torch/tools/exp_relayout.py", "chip_smoke.py"):
+                 "compeg_tpu_torch/tools/exp_relayout.py",
+                 "compeg_tpu_torch/golden.py", "compeg_tpu_torch/encoder.py",
+                 "compeg_tpu_torch/tools/validate.py", "chip_smoke.py"):
         assert must in names, must
 
 

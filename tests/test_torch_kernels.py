@@ -298,7 +298,7 @@ def test_relayout_params_mirror_the_c_struct():
     assert c_fields == [n for n, _ in _build.RelayoutParams._fields_]
     assert all(t is ctypes.c_int64 for _, t in _build.RelayoutParams._fields_)
     assert set(_build.LAUNCHES) >= {"interleave", "swap_crop", "stack",
-                                    "spread_merge"}
+                                    "spread_merge", "copy_shift"}
 
 
 def test_params_of_a_batch():
@@ -438,10 +438,11 @@ def test_relayout_transposes_at_ragged_sizes(cuda, x, l, n):
 @pytest.mark.parametrize("n,l", [(64, 256), (1, 4095), (33, 70), (3, 6),
                                  (540, 3840)])
 def test_copy_and_spread_at_every_alignment(cuda, offset, n, l):
-    """The 16-byte and the word kernels, whichever the pointers and lengths
-    select, against torch's own copy and the plain spread and merge: inputs
-    that start 0 to 4 words off a 16-byte boundary, contiguous and with
-    strided rows, lengths that are and are not whole vectors."""
+    """The 16-byte kernels, the copy's shift kernel and the spread's word
+    kernel, whichever the pointers and lengths select, against torch's own
+    copy and the plain spread and merge: inputs that start 0 to 4 words off
+    a 16-byte boundary, contiguous and with strided rows, lengths that are
+    and are not whole vectors."""
     pad = 4
     base = torch.randint(0, 1 << 24, (2 * n * (l + pad) + 8,),
                          dtype=torch.int32, device=cuda)
@@ -455,7 +456,8 @@ def test_copy_and_spread_at_every_alignment(cuda, offset, n, l):
         flat_rows = n == 1 or a.stride(0) == l
         assert (vec == "vec") == (offset % 4 == 0 and (
             (n * l) % 4 == 0 if flat_rows else l % 4 == 0))
-        got = counted("spread_merge", R.relayout_copy, a)
+        got = counted("spread_merge" if vec == "vec" else "copy_shift",
+                      R.relayout_copy, a)
         assert got.is_contiguous() and torch.equal(got, a)
         for x in (2, 16):
             assert torch.equal(
@@ -619,11 +621,12 @@ def test_interleave_on_each_route(cuda, name, make, route):
 # -- the word tile and the swap's two routes, at every alignment -------------
 
 
-def launch_at(entry, key, src, out, **fields):
-    """Launch a relayout entry point into ``out`` (any view), as the wrapper
-    would but with the destination of the caller's choosing; one launch."""
+def launch_at(entry, key, *tensors, **fields):
+    """Launch a relayout entry point into its last tensor (any view), as the
+    wrapper would but with the destination of the caller's choosing; one
+    launch."""
     before = _build.LAUNCHES[key]
-    R._launch(entry, key, src, out, **fields)
+    R._launch(entry, key, *tensors, **fields)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[key] == before + 1
 
@@ -654,6 +657,34 @@ def test_word_tile_at_every_alignment(cuda, x, l):
                 assert torch.equal(out, want), (stride, in_off, out_off)
                 assert (buf[:out_off] == 7).all()
                 assert (buf[out_off + n * x * l:] == 7).all()
+
+
+@pytest.mark.parametrize("n,l,pad", [(1, 4099, 0), (1, 33, 0), (1, 3, 0),
+                                     (7, 130, 0), (5, 130, 1), (9, 3, 2),
+                                     (2160, 3837, 3), (33, 64, 3),
+                                     (1, 2160 * 3840 + 3, 0)])
+def test_copy_shift_at_every_alignment(cuda, n, l, pad):
+    """The copy's shift route with input and output 0 to 3 words past a
+    16-byte boundary, contiguous and rows ``l + pad`` words apart, equal to
+    clone(); the words around the output stay untouched. Small copies take
+    a vector a thread, the 4K rows and the 4K raster several."""
+    stride = l + pad
+    base = torch.randint(0, 1 << 24, (n * stride + 8,), dtype=torch.int32,
+                         device=cuda)
+    for in_off in range(4):
+        a = base[in_off:in_off + n * stride].reshape(n, stride)[:, :l]
+        for out_off in range(4):
+            if (in_off, out_off, pad % 4) == (0, 0, 0) and l % 4 == 0:
+                continue  # the 16-byte kernel's
+            buf = torch.full((n * l + 8,), 7, dtype=torch.int32, device=cuda)
+            out = buf[out_off:out_off + n * l].reshape(n, l)
+            assert R.spread_merge_route(a.data_ptr(), out.data_ptr(), n, l, 1,
+                                        a.stride(0)) == "shift"
+            launch_at("compeg_relayout_spread_merge", "copy_shift", a, a,
+                      out, n=n, l=l, x=1, in_stride=a.stride(0), vec=0)
+            assert torch.equal(out, a), (in_off, out_off)
+            assert (buf[:out_off] == 7).all()
+            assert (buf[out_off + n * l:] == 7).all()
 
 
 @pytest.mark.parametrize("x,h,w,route", [

@@ -47,6 +47,20 @@ def test_decode_matches_jax_and_golden(sampling, test_image):
     check_against_jax_and_golden(data)
 
 
+def test_float_decode_equals_jax_where_golden_rounds_the_other_way():
+    """tools/tpu_validate.py's 4:2:0, Ri = 5, q = 85, 96 x 128 stream, where
+    the float decode is 2 off golden's matrix IDCT at four samples
+    (tests/test_torch_validation.py): the port's decode equals the JAX
+    package's there, and both equal the reference's AAN arithmetic."""
+    from compeg_tpu_torch.tools import validate
+
+    name, data = validate.streams(0)[6]
+    assert name == "420 ri=5 q=85 96x128"
+    got = Decoder(device="cpu").decode(data)
+    assert np.array_equal(got, JaxDecoder(interpret=True).decode(data))
+    assert np.array_equal(got, golden.decode_rgb(data, idct="aan"))
+
+
 def test_decoder_reuse_across_frames_hits_header_cache(test_image):
     dec = Decoder(device="cpu")
     hdr = None

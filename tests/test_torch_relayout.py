@@ -141,21 +141,27 @@ A = 0x7F0000000000  # a 512-byte aligned base, as the allocator hands out
 ROUTES = [
     # a_ptr, out_ptr, n, l, x, in_stride, route
     (A, A, 2160, 3840, 1, 3840, "vec"),        # the 4K raster
-    (A + 4, A, 2160, 3840, 1, 3840, "word"),   # input one word off
-    (A + 8, A, 2160, 3840, 1, 3840, "word"),
+    (A + 4, A, 2160, 3840, 1, 3840, "shift"),  # input one word off
+    (A + 8, A, 2160, 3840, 1, 3840, "shift"),
+    (A + 12, A, 2160, 3840, 1, 3840, "shift"),
     (A + 16, A, 2160, 3840, 1, 3840, "vec"),   # four words off
-    (A, A + 4, 2160, 3840, 1, 3840, "word"),   # output one word off
-    (A, A, 1, 4095, 1, 4095, "word"),          # no multiple of four words
-    (A, A, 3, 6, 1, 6, "word"),                # contiguous, 18 words
+    (A, A + 4, 2160, 3840, 1, 3840, "shift"),  # output one word off
+    (A, A + 8, 2160, 3840, 1, 3840, "shift"),
+    (A, A + 12, 2160, 3840, 1, 3840, "shift"),
+    (A + 4, A + 4, 2160, 3840, 1, 3840, "shift"),  # both one word off
+    (A + 12, A + 8, 2160, 3836, 1, 3840, "shift"),
+    (A, A, 1, 4095, 1, 4095, "shift"),         # no multiple of four words
+    (A, A, 3, 6, 1, 6, "shift"),               # contiguous, 18 words
     (A, A, 2, 6, 1, 6, "vec"),                 # contiguous, 12 words: one row
     (A, A, 2160, 3836, 1, 3840, "vec"),        # strided rows of whole vectors
-    (A, A, 2160, 3838, 1, 3840, "word"),       # ... of ragged length
-    (A, A, 2160, 3836, 1, 3838, "word"),       # ... a ragged stride apart
+    (A, A, 2160, 3838, 1, 3840, "shift"),      # ... of ragged length
+    (A, A, 2160, 3836, 1, 3838, "shift"),      # ... a ragged stride apart
     (A + 4, A, 8, 128, 16, 128 * 16 * 8, "vec"),  # a spread reads words
     (A + 4, A + 4, 8, 128, 16, 128, "word"),
     (A, A, 8, 3, 2, 3, "vec"),                 # 48 words in one row
     (A, A, 8, 3, 2, 5, "word"),                # rows of 6 words, strided
     (A, A, 7, 2, 2, 9, "vec"),                 # rows of one vector each
+    (A, A + 8, 7, 2, 3, 9, "word"),            # a spread off a boundary
 ]
 
 
@@ -177,11 +183,15 @@ def test_route_of_real_tensors():
 
     grid = base[:64 * 64].reshape(64, 64)
     assert route(grid) == "vec"
-    assert route(base[1:1 + 64 * 64].reshape(64, 64)) == "word"
-    assert route(grid[:, :60]) == "vec" and route(grid[:, :62]) == "word"
-    assert route(grid[:, 4:]) == "vec" and route(grid[:, 1:61]) == "word"
-    assert route(base[:64 * 65].reshape(64, 65)[:, :64]) == "word"
+    for off in (1, 2, 3):
+        assert route(base[off:off + 64 * 64].reshape(64, 64)) == "shift"
+    assert route(base[4:4 + 64 * 64].reshape(64, 64)) == "vec"
+    assert route(grid[:, :60]) == "vec" and route(grid[:, :62]) == "shift"
+    assert route(grid[:, 4:]) == "vec" and route(grid[:, 1:61]) == "shift"
+    assert route(base[:64 * 65].reshape(64, 65)[:, :64]) == "shift"
     assert route(base[1:1 + 64 * 64].reshape(64, 64), x=4) == "vec"
+    assert route(grid[:, :62], x=2) == "vec"
+    assert route(base[:64 * 65].reshape(64, 65)[:, :63], x=2) == "word"
 
 
 VIEWS = [
@@ -220,6 +230,192 @@ def test_copy_of_higher_rank_and_what_it_refuses():
         R.relayout_copy(t(x)[:, :, ::2])
     with pytest.raises(ValueError, match="X >= 1"):
         R.relayout_spread(t(x)[0, 0], 0)
+
+
+# -- the copy's shift route (relayout_copy_shift_kernel), in numpy ------------
+
+
+def copy_constants():
+    """COPY_IN_FLIGHT and the shift kernel's threads a block, as
+    csrc/relayout.cu has them."""
+    with open(os.path.join(_build.CSRC, "relayout.cu")) as f:
+        text = f.read()
+    threads = re.search(r"__launch_bounds__\((\d+)\)\s*"
+                        r"relayout_copy_shift_kernel\(", text)
+    return {"COPY_IN_FLIGHT": int(re.search(
+                r"constexpr int COPY_IN_FLIGHT = (\d+);", text)[1]),
+            "THREADS": int(threads[1])}
+
+
+CP = copy_constants()
+
+
+class ViewMemory:
+    """Device memory in words around a view: ``view`` words are the input,
+    the rest of ``data`` is other memory. A 16-byte load must be aligned and
+    hold at least one word of the view; a word load must be a word of it."""
+
+    def __init__(self, data, base, view):
+        self.data, self.base, self.view = data, base, view
+
+    def load(self, addr, vector=False):
+        addr = np.asarray(addr)
+        if vector:
+            assert (addr % 4 == 0).all(), "unaligned 16-byte load"
+            words = addr[:, None] + np.arange(4)
+            assert self.view[words - self.base].any(axis=1).all(), \
+                "a 16-byte load holds no word of the view"
+            return self.data[words - self.base]
+        assert self.view[addr - self.base].all(), "a word outside the view"
+        return self.data[addr - self.base]
+
+
+def copy_shift_walk(src, dst, n, l, in_stride, row0, max_blocks=16,
+                    max_rows=65535, mutate=None):
+    """relayout_copy_shift_kernel in numpy with its launch (a grid at most
+    ``max_blocks`` wide, a card of ``max_blocks / 16`` multiprocessors: one
+    vector a thread while that width holds the copy, else COPY_IN_FLIGHT; a
+    row a blockIdx.y, at most ``max_rows`` of them), the threads of one blockIdx.y as a vector, the
+    shuffle that hands a lane the next lane's chunk included: the copy of
+    ``n`` rows of ``l`` words, ``in_stride`` apart from word address
+    ``row0``, into ``dst``. ``mutate`` breaks one step, as a wrong kernel
+    would."""
+    threads = CP["THREADS"]
+    flat = n == 1 or in_stride == l
+    rows, lw = (1, n * l) if flat else (n, l)
+    nv_max = (lw + 6) // 4
+    # one vector a thread while the card's width holds the copy that way
+    inflight = (CP["COPY_IN_FLIGHT"] if nv_max * rows > max_blocks * threads
+                else 1)
+    want_blocks = -(-nv_max // (inflight * threads))
+    step = min(want_blocks, max_blocks) * threads
+    v0 = np.arange(step)
+    for y in range(min(rows, max_rows)):
+        for r in range(y, rows, max_rows):
+            s = row0 + r * in_stride  # word addresses
+            o = dst.base + r * lw
+            head = o % 4
+            d = (s - head) % 4
+            if mutate == "wrong d":
+                d = (row0 - dst.base % 4) % 4
+            chunks = s - head - d  # chunk q is at chunks + 4 * q
+            nv, qa, qb = (lw + head + 3) >> 2, int(head != 0), (lw + head) >> 2
+            for v in range(0, nv, inflight * step):
+                staged = []
+                for k in range(inflight):
+                    q = v + v0 + k * step
+                    inner = (q >= qa) & (q < qb)
+                    lane = v0 % 32
+                    lo = np.zeros((step, 4), np.uint32)
+                    lo[inner] = src.load(chunks + 4 * q[inner], vector=True)
+                    # chunk q + 1: loaded by the warp's last lane and where
+                    # the next vector is not the row's, else the next
+                    # lane's chunk q, by a shuffle
+                    own = inner & ((lane == 31) | (q + 1 >= qb))
+                    if mutate == "no load at the warp's end":
+                        own &= lane != 31
+                    hi = np.zeros((step, 4), np.uint32)
+                    if d:
+                        hi[own] = src.load(chunks + 4 * q[own] + 4,
+                                           vector=True)
+                        # __shfl_down_sync(.., 1): lane 31 gets its own
+                        nxt = np.where((lane < 31)[:, None],
+                                       np.roll(lo, -1, axis=0), lo)
+                        shuffled = inner & ~own
+                        hi[shuffled, :d] = nxt[shuffled, :d]
+                    vec = np.concatenate([lo, hi], axis=1)[inner, d:d + 4]
+                    q = q[q < nv]
+                    inner = inner[:q.size]
+                    edge = q[~inner]
+                    words = np.zeros((edge.size, 4), np.uint32)
+                    for i in range(4):
+                        at = 4 * edge - head + i
+                        ok = (at >= 0) & (at < lw)
+                        if mutate == "lost head word":
+                            ok &= at >= 1
+                        words[ok, i] = src.load(s + at[ok])
+                    staged.append((q[inner], vec, edge, words))
+                for qi, vec, edge, words in staged:
+                    dst.store(o - head + 4 * qi, vec.reshape(-1), vector=True)
+                    end = lw - 1 if mutate == "dropped tail" else lw
+                    for i in range(4):
+                        at = 4 * edge - head + i
+                        ok = (at >= 0) & (at < end)
+                        dst.store(o + at[ok], words[ok, i])
+
+
+def shift_copy(n, l, in_stride, in_off, out_off, max_blocks=16,
+               max_rows=65535, mutate=None):
+    """The walk over ``n`` rows of ``l`` words ``in_stride`` apart, the
+    first ``in_off`` words and the output ``out_off`` words past a 16-byte
+    boundary; the output and the view in numpy."""
+    extent = (n - 1) * in_stride + l
+    data = random_u32(extent + 16, seed=n * 7919 + l * 31 + in_stride)
+    base = 4096
+    row0 = base + 4 + in_off
+    view = np.zeros(data.size, bool)
+    for r in range(n):
+        view[row0 - base + r * in_stride:row0 - base + r * in_stride + l] = 1
+    src = ViewMemory(data, base, view)
+    dst = Memory(np.zeros(n * l, np.uint32), 8192 + out_off)
+    copy_shift_walk(src, dst, n, l, in_stride, row0, max_blocks, max_rows,
+                    mutate)
+    rows = np.stack([data[row0 - base + r * in_stride:
+                          row0 - base + r * in_stride + l] for r in range(n)])
+    return dst, rows.reshape(-1)
+
+
+def check_shift_copy(*args, **kwargs):
+    dst, want = shift_copy(*args, **kwargs)
+    assert (dst.writes == 1).all(), "an output word not written once"
+    assert np.array_equal(dst.data, want)
+
+
+@pytest.mark.parametrize("in_off", [0, 1, 2, 3])
+def test_copy_shift_walk_contiguous_equals_numpy(in_off):
+    """The contiguous copy of 1 to 4,099 words, input and output 0 to 3
+    words past a 16-byte boundary: every output word written once, every
+    16-byte load and store aligned, every load holding a word of the input,
+    and the input's words in order."""
+    assert R.spread_merge_route(16 + 4 * in_off, 16, 1, 4095, 1,
+                                4095) == "shift"
+    for words in [*range(1, 34), 127, 128, 129, 1023, 1024, 1025, 4093,
+                  4095, 4096, 4097, 4099]:
+        for out_off in range(4):
+            check_shift_copy(1, words, words, in_off, out_off)
+    # two rows that are one contiguous run take the flat walk too
+    check_shift_copy(3, 130, 130, in_off, 1)
+    # past the card's width: COPY_IN_FLIGHT vectors a thread
+    for out_off in range(4):
+        check_shift_copy(1, 4099, 4099, in_off, out_off, max_blocks=1)
+
+
+@pytest.mark.parametrize("stride_mod", [0, 1, 2, 3])
+def test_copy_shift_walk_strided_rows_equal_numpy(stride_mod):
+    """Strided rows of 1 to 130 words, strides of each remainder mod 4:
+    each row its own relative word offset, its own head and tail of at most
+    three words, written word by word."""
+    for l in (1, 2, 3, 4, 5, 7, 8, 13, 64, 127, 128, 129, 130):
+        stride = l + 1 + (stride_mod - l - 1) % 4
+        assert stride % 4 == stride_mod and stride > l
+        for in_off in range(4):
+            for out_off in {0, (in_off + l) % 4}:
+                check_shift_copy(5, l, stride, in_off, out_off)
+        # rows walked by gridDim.y, vectors by the grid's width
+        check_shift_copy(9, l, stride, 3, 0, max_blocks=1, max_rows=4)
+
+
+@pytest.mark.parametrize("mutate,case", [
+    ("lost head word", (1, 33, 33, 1, 2)),
+    ("dropped tail", (1, 4099, 4099, 2, 0)),
+    ("dropped tail", (4, 130, 133, 0, 1)),
+    ("wrong d", (5, 64, 67, 1, 0)),
+    ("no load at the warp's end", (1, 1000, 1000, 1, 0)),
+])
+def test_a_mutated_copy_shift_walk_fails(mutate, case):
+    check_shift_copy(*case)
+    with pytest.raises(AssertionError):
+        check_shift_copy(*case, mutate=mutate)
 
 
 # -- the interleave's choice of kernels ---------------------------------------
