@@ -29,7 +29,17 @@ transpose and crop. Then the validation tool in its quick form
 (compeg_tpu_torch/tools/validate.py): streams of every sampling, restart
 interval and a grid of odd sizes, made by the port's encoder, in every
 decode mode of the port against the port's golden decoder, and a short
-soak of garbage entropy bits, scan bytes and header bytes. Any failure
+soak of garbage entropy bits, scan bytes and header bytes. Then the
+capture path: the 64 4K frames as one MJPEG stream, read from a file, from a
+pipe that a thread fills in odd-sized chunks, by following a file that a
+thread grows, and from v4l2.Camera over a fake driver
+(compeg_tpu_torch/testdata/fake_v4l2.py, with an error-flagged and a
+non-JPEG frame among them), each into StreamDecoder, and through the viewer
+(compeg_tpu_torch/tools/viewer.py) in process at full scale and at k/8,
+every frame equal to the single-frame decode of the same frame. Then the
+banded decode of compeg_tpu_torch/parallel/sharding.py in a world of one
+NCCL rank: 8 4K frames in 4 bands in each mode and a 1080p stream at
+Ri = 7, equal to BatchDecoder and Decoder byte for byte. Any failure
 exits non-zero. The default
 decode of the 4K frame must equal golden's byte for byte (its sha256), the
 small rasters must take both the
@@ -50,12 +60,17 @@ validation tool computes its own with the port's golden decoder.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -132,7 +147,10 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card")
         return 1
     sys.path.insert(0, ROOT)
-    from compeg_tpu_torch import CompegError, native, profiling, testdata
+    import torch.distributed as dist
+
+    from compeg_tpu_torch import (CompegError, analyze, encoder, mjpeg,
+                                  native, profiling, testdata, v4l2)
     from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder
     from compeg_tpu_torch.ops import _build
     from compeg_tpu_torch.ops import color as C
@@ -142,7 +160,10 @@ def main() -> int:
     from compeg_tpu_torch.ops import int_idct as I
     from compeg_tpu_torch.ops import relayout as R
     from compeg_tpu_torch.pipeline import Decoder
-    from compeg_tpu_torch.tools import exp_relayout, validate
+    from compeg_tpu_torch.parallel import multihost as MH
+    from compeg_tpu_torch.parallel import sharding as SH
+    from compeg_tpu_torch.testdata.fake_v4l2 import FakeCamera
+    from compeg_tpu_torch.tools import exp_relayout, validate, viewer
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain IDCT in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -930,16 +951,16 @@ def main() -> int:
 
     # ---- (i) the relayout kernels --------------------------------------------
     # The path: the probe tool, at the probes' shapes and on the 4K decode.
-    tool, counts = drive(lambda: exp_relayout.probes("cuda", reps=REPS)
+    tool, rl_counts = drive(lambda: exp_relayout.probes("cuda", reps=REPS)
                          + [exp_relayout.swap_on_decode("cuda", reps=REPS)])
     for res in tool:
         log("(i) " + exp_relayout.report(res))
         require(res["ok"], f"relayout: {res['probe']} differs from numpy")
     rl_keys = ("interleave", "swap_crop", "stack", "spread_merge")
-    require(all(counts[k] >= 1 for k in rl_keys)
-            and not any(v for k, v in counts.items()
+    require(all(rl_counts[k] >= 1 for k in rl_keys)
+            and not any(v for k, v in rl_counts.items()
                         if k not in rl_keys + ("fused",)),
-            f"the relayout tool did not run on its own kernels: {counts}")
+            f"the relayout tool did not run on its own kernels: {rl_counts}")
     # Each kernel against its plain version, on the card, at those shapes.
     x5 = torch.randint(0, 1 << 24, (68, 8, 8, 16, 128), dtype=torch.int32,
                        device="cuda")
@@ -1101,6 +1122,307 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s on {card}")
     require(rc == 0, "the validation tool found a failure (its FAIL lines)")
 
+    # ---- (k) the capture path ---------------------------------------------------
+    # The 64 4K frames of phase (h) as one MJPEG stream, through each capture
+    # route into StreamDecoder (K2) and through the viewer (K2, and K2s for
+    # --scale), each frame held to Decoder().decode of the same frame by its
+    # sha256 and each thumbnail to Decoder().decode_scaled.
+    t_k = time.perf_counter()
+    want_sha = [testdata.digest(dec.decode(f)) for f in frames4k]
+    require(want_sha[0] == str(vec["bench4k_rgb_sha256"]),
+            "capture: frame 0 is not golden's bench4k (sha256)")
+    want_thumb = {k: [testdata.digest(dec.decode_scaled(f, k))
+                      for f in frames4k] for k in SCALES}
+    tmp = tempfile.mkdtemp(prefix="compeg_smoke_")
+    mjpeg_path = os.path.join(tmp, "capture.mjpeg")
+    stream_bytes = mjpeg.concat_frames(frames4k)
+    with open(mjpeg_path, "wb") as f:
+        f.write(stream_bytes)
+    capture_launches = {"fused": 0, "scaled": 0}
+    capture_ms = {}
+    kdec = StreamDecoder(depth=2)
+
+    def capture_route(name, source, frames_expected=BATCH):
+        """Every frame of ``source()`` through kdec.decode_iter and to_rgb,
+        against want_sha in order; the wall per frame up to the last frame,
+        the digests' time taken out."""
+        digests = []
+        spent = [0.0, 0.0]  # digest seconds, time of the last frame
+
+        def run():
+            for out in kdec.decode_iter(source()):
+                got = kdec.to_rgb(out)
+                t1 = time.perf_counter()
+                digests.append(testdata.digest(got))
+                spent[1] = time.perf_counter()
+                spent[0] += spent[1] - t1
+
+        t0 = time.perf_counter()
+        _, counts = drive(run)
+        wall = (spent[1] - t0 - spent[0]) * 1e3 / max(1, len(digests))
+        require(len(digests) == frames_expected and all(
+            d == want_sha[i % BATCH] for i, d in enumerate(digests)),
+            f"capture, {name}: {len(digests)} frames, not every one "
+            "Decoder().decode of the same frame (sha256)")
+        require(counts["fused"] == frames_expected
+                and sum(counts.values()) == frames_expected,
+                f"capture, {name}: launches {counts}, not one K2 a frame")
+        capture_launches["fused"] += counts["fused"]
+        capture_ms[name] = wall
+        log(f"(k) {name}: {len(digests)} 4K frames, each == Decoder().decode "
+            f"of the same frame (sha256), one K2 launch each; {wall:.3f} ms "
+            f"wall per frame ({1e3 / wall:.1f} frames/s) on {card}")
+
+    warm = list(kdec.decode_iter(frames4k[:4]))  # pinned buffers, workers
+    del warm
+    capture_route("frames_from_file -> StreamDecoder.decode_iter",
+                  lambda: mjpeg.frames_from_file(mjpeg_path))
+
+    def piped():
+        """frames_from_stream on an os.pipe that a thread fills in chunks
+        of 65,537 bytes, so SOI markers fall across chunks."""
+        r, w = os.pipe()
+
+        def writer():
+            try:
+                view = memoryview(stream_bytes)
+                for i in range(0, len(view), 65537):
+                    chunk = view[i:i + 65537]
+                    while chunk:
+                        chunk = chunk[os.write(w, chunk):]
+            finally:
+                os.close(w)
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        with os.fdopen(r, "rb") as f:
+            yield from mjpeg.frames_from_stream(f)
+        th.join()
+
+    capture_route("frames_from_stream on a pipe, 65,537-byte chunks", piped)
+
+    def from_process():
+        """The same pipe written by another process, as ffmpeg or a camera
+        daemon would write it."""
+        writer = subprocess.Popen(
+            [sys.executable, "-c", "import sys\n"
+             "d = open(sys.argv[1], 'rb').read()\n"
+             "for i in range(0, len(d), 65537):\n"
+             "    sys.stdout.buffer.write(d[i:i + 65537])\n", mjpeg_path],
+            stdout=subprocess.PIPE)
+        try:
+            yield from mjpeg.frames_from_stream(writer.stdout)
+        finally:
+            writer.stdout.close()
+            writer.wait(timeout=60)
+
+    capture_route("frames_from_stream on a pipe from another process",
+                  from_process)
+
+    def followed():
+        """follow_frames on a file that a thread grows in 1 MiB appends."""
+        live = os.path.join(tmp, "live.mjpeg")
+        open(live, "wb").close()
+
+        def writer():
+            with open(live, "ab") as f:
+                for i in range(0, len(stream_bytes), 1 << 20):
+                    f.write(stream_bytes[i:i + (1 << 20)])
+                    f.flush()
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        yield from mjpeg.follow_frames(live, poll_s=0.002,
+                                       idle_timeout_s=0.2)
+        th.join()
+
+    # Its wall includes the 0.2 s without growth that ends the stream: the
+    # decoder asks for the next frame before it hands out the last ones.
+    capture_route("follow_frames on a growing file (0.2 s idle timeout)",
+                  followed)
+
+    # The camera: the 64 frames through v4l2.Camera over a fake driver, an
+    # error-flagged copy of one frame and a frame without SOI among them.
+    served = [(f, 0) for f in frames4k]
+    served.insert(BATCH // 3, (b"\x00" + frames4k[BATCH // 3][1:], 0))
+    served.insert(BATCH // 6, (frames4k[BATCH // 6], v4l2.BUF_FLAG_ERROR))
+    cam = FakeCamera(served, size=(3840, 2160))
+
+    def camera():
+        with cam.installed(), v4l2.Camera("/dev/video0",
+                                          size=(3840, 2160)) as c:
+            require(c.size == (3840, 2160), f"camera size {c.size}")
+            yield from c.frames(max_frames=BATCH)
+
+    capture_route("v4l2.Camera.frames (fake driver, one error-flagged and "
+                  "one non-SOI frame skipped)", camera)
+    require(cam.served == BATCH + 2 and not cam.streaming,
+            f"camera: served {cam.served}, streaming {cam.streaming}")
+
+    # The viewer in process: --loop 2 at full scale, then --scale 1, 2, 4.
+    def viewer_run(argv, want, key, frames_expected):
+        """viewer.main(argv) with each frame held to ``want``; the wall per
+        frame of the whole call (reading the file included) and between
+        its first and last frame (steady), the digests' time taken out."""
+        digests = []
+        arrived, spent = [], [0.0]
+
+        def on_frame(n, got):
+            arrived.append(time.perf_counter() - spent[0])
+            t1 = time.perf_counter()
+            digests.append(testdata.digest(got) == want[n % BATCH])
+            spent[0] += time.perf_counter() - t1
+
+        quiet = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            n, counts = drive(lambda: viewer.main(argv, on_frame=on_frame))
+        wall = ((time.perf_counter() - t0 - spent[0]) * 1e3
+                / max(1, frames_expected))
+        steady = (arrived[-1] - arrived[0]) * 1e3 / max(1, n - 1)
+        name = "viewer " + " ".join(argv[1:])
+        require(n == len(digests) == frames_expected and all(digests),
+                f"capture, {name}: {n} frames, not each the single decode")
+        require(counts[key] == frames_expected
+                and sum(counts.values()) == frames_expected,
+                f"capture, {name}: launches {counts}")
+        capture_launches[key] += counts[key]
+        capture_ms[name] = (wall, steady)
+        log(f"(k) {name}: {n} frames, each == Decoder()."
+            + ("decode (sha256)" if key == "fused" else "decode_scaled")
+            + f", one {'K2' if key == 'fused' else 'K2s'} launch each; "
+            f"{wall:.3f} ms wall per frame with the file's reading, "
+            f"{steady:.3f} ms from the first frame to the last "
+            f"({1e3 / steady:.1f} frames/s) on {card}; its last line: "
+            f"{quiet.getvalue().splitlines()[-1]}")
+
+    viewer_run([mjpeg_path, "--loop", "2", "--stats-every", "64"], want_sha,
+               "fused", 2 * BATCH)
+    for k in SCALES:
+        viewer_run([mjpeg_path, "--scale", str(k), "--stats-every", "64"],
+                   want_thumb[k], "scaled", BATCH)
+    one = os.path.join(tmp, "frame0.jpg")
+    with open(one, "wb") as f:
+        f.write(frames4k[0])
+    shown = io.StringIO()
+    with contextlib.redirect_stdout(shown):
+        viewer.main([one, "--preview", "--scale", "1"])
+    require(viewer.render_ansi(dec.decode_scaled(frames4k[0], 1), 96)
+            in shown.getvalue(), "capture: the viewer's --preview is not "
+            "render_ansi of the 1/8 decode")
+    log(f"(k) viewer --preview --scale 1 on one frame: {len(shown.getvalue())}"
+        " characters into a buffer, == render_ansi of decode_scaled(k=1)")
+    shutil.rmtree(tmp)
+    del stream_bytes, served, cam
+    log(f"(k) the capture path in {time.perf_counter() - t_k:.1f} s; "
+        f"launches {capture_launches}")
+
+    # ---- (l) the banded decode on the card ---------------------------------------
+    # A world of one NCCL rank on a 1 x 1 DeviceMesh (one card holds one
+    # rank; the halo between ranks is tested with gloo on the CPU): a batch
+    # of 8 4K frames in 4 bands in each mode, and a 1920 x 1080 4:2:2 stream
+    # at Ri = 7 (wm = 120 is no multiple of 7, so bands are cut at restart
+    # boundaries and its last interval is short), each equal to
+    # BatchDecoder or Decoder on the card byte for byte.
+    t_l = time.perf_counter()
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{MH.free_port()}")
+    banded_launches = {}
+    banded_ms = {}
+    try:
+        mesh = SH.make_mesh(1, 1)
+        require(not isinstance(mesh, SH.LocalMesh)
+                and mesh.device_type == "cuda",
+                f"the mesh is not a CUDA DeviceMesh: {mesh}")
+        frames8 = frames4k[:8]
+        band_modes = {
+            "nearest (K2)": ({}, "fused"),
+            "exact_idct (K2x)": ({"exact_idct": True}, "fused_exact"),
+            "fancy + exact (K3 integer, epilogue)": (
+                {"fancy_upsampling": True, "exact_idct": True}, "planes"),
+            "fancy float (K3 float, epilogue)": (
+                {"fancy_upsampling": True}, "planes"),
+        }
+        bands = [SH.prepare_banded(analyze(f), 4) for f in frames8]
+        brows = torch.from_numpy(SH.stack_banded(bands)).cuda()
+        bgeom = pf.geom
+        for name, (knobs, key) in band_modes.items():
+            bd = BatchDecoder(**knobs)
+            sd = BatchDecoder(**knobs)  # the banded decode's own staging
+            want = bd.decode(frames8)
+            out, lcounts = drive(lambda: SH.decode_frames_sharded(
+                frames8, mesh, 4, decoder=sd))
+            require(lcounts[key] == 1 and sum(lcounts.values()) == 1,
+                    f"banded {name}: launches {lcounts}, not one of {key}")
+            banded_launches[key] = banded_launches.get(key, 0) + lcounts[key]
+            got = F.rgba_to_rgb(SH.gather_global(out, mesh)).cpu().numpy()
+            require(np.array_equal(got, want),
+                    f"banded {name}: differs from BatchDecoder")
+
+            bpfs = bd.prepare_batch(frames8)
+            rows_b = bd.upload()
+
+            def banded_kernel(pf0=bpfs[0], sd=sd):
+                return SH.decode_batch_sharded(
+                    brows, bands[0].nseg, pf0.tables, pf0.op, mesh=mesh,
+                    geom=bgeom, band_rows=bands[0].band_rows,
+                    fancy_upsample=sd.fancy, exact_idct=sd.exact_idct)
+
+            banded_ms[name] = (
+                cuda_ms(banded_kernel, reps=5, burst=1) / 8,
+                cuda_ms(lambda: bd._dec.decode_rows(bpfs[0], rows_b),
+                        reps=5, burst=1) / 8,
+                wall_ms(lambda: SH.decode_frames_sharded(frames8, mesh, 4,
+                                                         decoder=sd),
+                        reps=3) / 8,
+                wall_ms(lambda: bd.decode_prepared(bd.prepare_batch(
+                    frames8)), reps=3) / 8)
+            del rows_b
+            log(f"(l) banded {name}: 8 4K frames in 4 bands of "
+                f"{bands[0].band_rows} MCU rows == BatchDecoder byte for "
+                f"byte, one launch of {key}; per frame: banded "
+                f"{banded_ms[name][0]:.4f} ms on the card (rows resident; "
+                f"BatchDecoder's decode_rows {banded_ms[name][1]:.4f} ms), "
+                f"wall with the host's prepare and upload "
+                f"{banded_ms[name][2]:.3f} ms (BatchDecoder prepare_batch + "
+                f"decode_prepared {banded_ms[name][3]:.3f} ms); medians of "
+                f"5 CUDA-event timings and 3 walls, on {card}")
+        del brows
+        # The Ri = 7 stream, from the 4K frame's top-left 1080p by the
+        # port's encoder.
+        t0 = time.perf_counter()
+        data7 = encoder.encode(main_rgb[:1080, :1920], sampling="422",
+                               quality=90, restart_interval_mcus=7)
+        img7 = analyze(data7)
+        require((img7.width_mcus, img7.height_mcus, img7.restart_interval)
+                == (120, 135, 7) and img7.total_mcus % 7,
+                "the Ri = 7 stream has another geometry")
+        log(f"(l) 1920x1080 4:2:2 Ri = 7 encoded in "
+            f"{time.perf_counter() - t0:.1f} s: {len(data7)} bytes, "
+            f"{img7.total_restart_intervals} segments, band rows "
+            f"{SH.band_rows_for(img7, 4)}")
+        for name, knobs, key in (
+                ("nearest", {}, "fused"),
+                ("exact_idct", {"exact_idct": True}, "fused_exact"),
+                ("fancy + exact", {"fancy_upsampling": True,
+                                   "exact_idct": True}, "planes")):
+            want = Decoder(**knobs).decode(data7)
+            out, lcounts = drive(lambda: SH.decode_frames_sharded(
+                [data7] * 2, mesh, 4, decoder=BatchDecoder(**knobs)))
+            require(lcounts[key] == 1 and sum(lcounts.values()) == 1,
+                    f"banded Ri = 7 {name}: launches {lcounts}")
+            banded_launches[key] = banded_launches.get(key, 0) + lcounts[key]
+            got = F.rgba_to_rgb(out).cpu().numpy()
+            require(got.shape == (2, 1080, 1920, 3)
+                    and all(np.array_equal(g, want) for g in got),
+                    f"banded Ri = 7 {name}: differs from Decoder")
+            log(f"(l) banded Ri = 7 {name}: 2 frames in 4 bands == "
+                f"Decoder().decode byte for byte, one launch of {key}")
+    finally:
+        dist.destroy_process_group()
+    log(f"(l) the banded decode in {time.perf_counter() - t_l:.1f} s; "
+        f"launches {banded_launches}")
+
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
     # over the memory rate and operations over the float32 rate. Operations
@@ -1148,12 +1470,12 @@ def main() -> int:
                 "library_ms": None, **extra}
 
     launch_sets = [launches, batch_launches, {"stream": stream_launches},
-                   staged_batch_launches]
+                   staged_batch_launches, capture_launches, banded_launches]
 
     def relayout_entry(name, key, replaces, probe_name, **extra):
         res = next(r for r in tool if r["probe"] == probe_name)
         return {"name": name, "route": "cuda", "source": RELAYOUT_SOURCE,
-                "replaces": replaces, "launches": counts[key],
+                "replaces": replaces, "launches": rl_counts[key],
                 "max_abs_err": rl_err[key], "ms": res["ms"],
                 "plain_ms": res["library_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": "bytes", "library_ms": res["library_ms"],

@@ -70,12 +70,20 @@ class _Staging:
                                       pin_memory=self.cuda)
         return self.tensor.numpy().view(np.uint32)
 
-    def upload(self, device, nrows: Optional[int] = None) -> torch.Tensor:
-        """Copy the buffer (its first ``nrows`` rows) to ``device`` on the
-        current stream, asynchronously from pinned memory, and remember the
-        copy's event."""
-        src = self.tensor if nrows is None else self.tensor[:nrows]
-        out = src.to(device, non_blocking=self.cuda)
+    def upload(self, device, nrows: Optional[int] = None,
+               lo: int = 0) -> torch.Tensor:
+        """Copy the buffer's ``nrows`` rows from row ``lo`` (all of them by
+        default; of every frame, for a batch ``[B, R, W]``) to ``device`` on
+        the current stream, asynchronously from pinned memory, and remember
+        the copy's event. Part of every frame of a batch is not contiguous:
+        it travels as one copy a frame."""
+        src = self.tensor[..., lo:None if nrows is None else lo + nrows, :]
+        if src.is_contiguous():
+            out = src.to(device, non_blocking=self.cuda)
+        else:
+            out = torch.empty(src.shape, dtype=src.dtype, device=device)
+            for o, part in zip(out, src):
+                o.copy_(part, non_blocking=self.cuda)
         if self.cuda:
             self.event = torch.cuda.Event()
             self.event.record()
@@ -191,17 +199,23 @@ class BatchDecoder:
         self._prepared: List[PreparedFrame] = []  # the staging buffer's frames
         self._readback = _Readback(self.device)
 
-    def prepare_batch(self, frames: Sequence[bytes]) -> List[PreparedFrame]:
+    def prepare_batch(self, frames: Sequence[bytes],
+                      rows_per_frame: Optional[int] = None
+                      ) -> List[PreparedFrame]:
         """Parse every frame and pack its rows into one staging buffer
         ``[B, R, W]`` at the batch's common row width; the frames must share
         geometry and tables. The buffer is this decoder's: a batch is decoded
-        before the next one is prepared."""
+        before the next one is prepared. ``rows_per_frame`` makes ``R`` hold
+        at least that many rows, zero past the frame's segments: the banded
+        decode's whole bands (``parallel/sharding.py``), which checks the
+        device budget of each rank's bands itself."""
         dec = self._dec
         if not frames:
             bail("empty batch")
         imgs = [dec._analyze(f) for f in frames]
         img0 = imgs[0][0]
-        dec.check_budget(img0, len(imgs))
+        if rows_per_frame is None:
+            dec.check_budget(img0, len(imgs))
         nseg = img0.total_restart_intervals
         pfs = [dec.frame_constants(img, consts) for img, consts in imgs]
         for pf in pfs[1:]:
@@ -211,7 +225,8 @@ class BatchDecoder:
         # again over every frame when a segment does not fit.
         width = dec._cached_width or dec.measure_width(img0)
         for attempt in (0, 1):
-            rows = self._staging.array(len(pfs), row_capacity(nseg), width)
+            rows = self._staging.array(
+                len(pfs), row_capacity(max(nseg, rows_per_frame or 0)), width)
             try:
                 packers = [dec.pack_into(pf.image, rows[i])
                            for i, pf in enumerate(pfs)]
@@ -236,8 +251,15 @@ class BatchDecoder:
                 a is b for a, b in zip(pfs, self._prepared)):
             raise ValueError("decode_prepared takes the frames of this "
                              "decoder's last prepare_batch, in order")
-        rows = self._staging.upload(self.device)
-        return self._dec.decode_rows(pfs[0], rows)
+        return self._dec.decode_rows(pfs[0], self.upload())
+
+    def upload(self, nrows: Optional[int] = None,
+               lo: int = 0) -> torch.Tensor:
+        """``nrows`` rows from row ``lo`` of every frame of the last
+        prepared batch (all of them by default), ``[B, nrows, W]`` int32 on
+        the device, uploaded from the staging buffer (asynchronously on a
+        CUDA device)."""
+        return self._staging.upload(self.device, nrows, lo)
 
     def to_rgb(self, out: torch.Tensor) -> np.ndarray:
         """Device batch output -> ``[B, H, W, 3]`` u8 (synchronizes). A few

@@ -57,6 +57,9 @@ class BitWriter:
             self.out.append(b)
             if b == 0xFF:
                 self.out.append(0x00)  # byte stuffing
+        # Keep only the bits not yet written: an accumulator that kept them
+        # all would grow with the scan and make a large frame quadratic.
+        self.acc &= (1 << self.nbits) - 1
 
     def pad_to_byte(self) -> None:
         if self.nbits:

@@ -21,7 +21,7 @@ the same integer arithmetic:
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -51,19 +51,38 @@ def upsample_fancy_h(plane: torch.Tensor) -> torch.Tensor:
     return torch.stack([even, odd], dim=2).reshape(plane.shape[0], -1)
 
 
-def upsample_fancy_v(plane: torch.Tensor) -> torch.Tensor:
-    """Vertical x2 triangle filter (``ops/color.upsample_fancy_v``)."""
-    above = torch.cat([plane[:1], plane[:-1]], dim=0)
-    below = torch.cat([plane[1:], plane[-1:]], dim=0)
-    even = (3 * plane + above + 1) >> 2
-    odd = (3 * plane + below + 2) >> 2
+def upsample_fancy_v(plane: torch.Tensor, above: Optional[torch.Tensor] = None,
+                     below: Optional[torch.Tensor] = None,
+                     valid: Optional[int] = None) -> torch.Tensor:
+    """Vertical x2 triangle filter (``ops/color.upsample_fancy_v``).
+
+    The halo-aware form serves a plane that is one slice of a taller one
+    (``_upsample_fancy_v_sharded``, compeg_tpu/ops/fused.py:696-733):
+    ``above`` is the row just above the slice and ``below`` the row just
+    under it (each ``[W]``; None clamps to the slice's own first or last
+    row, the plane's edge). ``valid`` counts the slice's rows that hold
+    content when the content ends inside it: the rows from ``valid - 1``
+    on clamp to themselves below, so that padding rows never bleed into
+    real ones (None: the content runs through the slice and into
+    ``below``)."""
+    top = plane[:1] if above is None else above.reshape(1, -1)
+    bottom = plane[-1:] if below is None else below.reshape(1, -1)
+    up = torch.cat([top, plane[:-1]], dim=0)
+    down = torch.cat([plane[1:], bottom], dim=0)
+    if valid is not None:
+        rows = torch.arange(plane.shape[0], device=plane.device)[:, None]
+        down = torch.where(rows < valid - 1, down, plane)
+    even = (3 * plane + up + 1) >> 2
+    odd = (3 * plane + down + 2) >> 2
     return torch.stack([even, odd], dim=1).reshape(-1, plane.shape[1])
 
 
-def upsample(plane: torch.Tensor, fx: int, fy: int, fancy: bool) -> torch.Tensor:
-    """One int32 plane to the luma grid."""
+def upsample(plane: torch.Tensor, fx: int, fy: int, fancy: bool,
+             halo: Optional[Tuple] = None) -> torch.Tensor:
+    """One int32 plane to the luma grid; ``halo`` is ``(above, below,
+    valid)`` of :func:`upsample_fancy_v` for a slice of a taller plane."""
     if fy > 1:
-        plane = (upsample_fancy_v(plane) if fancy
+        plane = (upsample_fancy_v(plane, *(halo or ())) if fancy
                  else plane.repeat_interleave(fy, dim=0))
     if fx > 1:
         plane = (upsample_fancy_h(plane) if fancy and fx == 2
@@ -90,12 +109,17 @@ def ycbcr_to_rgba(y: torch.Tensor, cb: torch.Tensor,
 def finalize_planes(planes: Sequence[torch.Tensor],
                     samplings: Sequence[Tuple[int, int]], width: int,
                     height: int, fancy: bool = False,
-                    rgb: bool = False) -> torch.Tensor:
-    """Component planes (u8, MCU-padded) -> packed RGBA int32 ``[H, W]``."""
+                    rgb: bool = False,
+                    halos: Optional[Sequence[Optional[Tuple]]] = None
+                    ) -> torch.Tensor:
+    """Component planes (u8, MCU-padded) -> packed RGBA int32 ``[H, W]``.
+    ``halos`` give each component's ``(above, below, valid)`` where the
+    planes are a band of taller ones (:func:`upsample_fancy_v`)."""
     max_h = max(h for h, _ in samplings)
     max_v = max(v for _, v in samplings)
-    up = [upsample(p.to(torch.int32), max_h // h, max_v // v, fancy)
-          for p, (h, v) in zip(planes, samplings)]
+    halos = halos or [None] * len(planes)
+    up = [upsample(p.to(torch.int32), max_h // h, max_v // v, fancy, halo)
+          for p, (h, v), halo in zip(planes, samplings, halos)]
     if len(up) == 1:
         img = pack_rgba(up[0], up[0], up[0])
     elif rgb:  # component IDs R, G, B: the samples are already RGB

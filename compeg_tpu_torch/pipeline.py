@@ -266,7 +266,8 @@ class Decoder:
 
     def pack_into(self, img: ImageData, out: np.ndarray) -> str:
         """Destuff + split + pack the scan into ``out``, ``[row_capacity(
-        nseg), W]`` uint32, at ``out``'s width; raises CompegError when a
+        n), W]`` uint32 for some ``n >= nseg``, at ``out``'s width, the
+        rows past the last segment zero; raises CompegError when a
         segment does not fit or the interval count is off. Returns the
         packer's name."""
         expected = img.total_restart_intervals
@@ -279,7 +280,9 @@ class Decoder:
             return "native"
         intervals = S.split_intervals(bytes(img.scan_data), expected)
         blk = S.to_device_layout(intervals, out.shape[1])
-        out[...] = blk.words.transpose(0, 2, 3, 1).reshape(out.shape)
+        rows = blk.words.transpose(0, 2, 3, 1).reshape(-1, out.shape[1])
+        out[:len(rows)] = rows
+        out[len(rows):] = 0
         return "python"
 
     def _pack(self, img: ImageData,

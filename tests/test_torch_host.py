@@ -318,3 +318,56 @@ def test_golden_refuses_what_the_jax_packages_refuses(test_image):
     ycc = np.random.default_rng(1).integers(0, 256, (3, 9, 11), np.uint8)
     assert same(PG.ycbcr_to_rgb_reference(*ycc),
                 JG.ycbcr_to_rgb_reference(*ycc))
+
+
+def _mjpeg_buffers(test_image):
+    frames = [encoder.encode(test_image(16, 32, "noise", seed=s),
+                             sampling="422", emit_dht=False,
+                             restart_interval_mcus=1) for s in range(3)]
+    return [b"".join(frames),
+            b"junk" + frames[0] + b"\x00\x01pad" + frames[1] + b"\xff"
+            + frames[2] + b"tail\xff",
+            frames[0][:-7],  # a frame cut short: no frame at all
+            b"", b"\xff\xd8\xff\xd9"]
+
+
+def test_mjpeg_splits_like_the_jax_package(test_image):
+    """The port's mjpeg module is a copy: split_frames, and the assembler
+    fed in chunks, give the JAX package's frames on the same buffers, junk
+    between frames and a marker split across chunks included."""
+    import compeg_tpu.mjpeg as JMJ
+    import compeg_tpu_torch.mjpeg as MJ
+
+    for buf in _mjpeg_buffers(test_image):
+        want = list(JMJ.split_frames(buf))
+        assert list(MJ.split_frames(buf)) == want
+        for cut in (1, 7, len(buf) // 2, len(buf) - 1):
+            asm, jasm = MJ.FrameAssembler(), JMJ.FrameAssembler()
+            got = list(asm.feed(buf[:cut])) + list(asm.feed(buf[cut:]))
+            assert got == list(jasm.feed(buf[:cut])) + list(
+                jasm.feed(buf[cut:])) == want
+        assert MJ.concat_frames(want) == JMJ.concat_frames(want)
+
+
+def test_v4l2_abi_is_the_jax_packages():
+    """Every ctypes structure's size and every ioctl code of the port's
+    v4l2 equal the JAX package's (itself pinned to the kernel's published
+    values by tests/test_v4l2.py), and so does fourcc."""
+    import ctypes
+
+    import compeg_tpu.v4l2 as JV
+    import compeg_tpu_torch.v4l2 as V
+
+    for name in ("Capability", "PixFormat", "Format", "RequestBuffers",
+                 "Timecode", "Buffer"):
+        assert ctypes.sizeof(getattr(V, name)) == ctypes.sizeof(
+            getattr(JV, name)), name
+    codes = [n for n in dir(JV) if n.startswith(("VIDIOC_", "BUF_", "CAP_",
+                                                 "MEMORY_", "FIELD_",
+                                                 "PIX_FMT_"))]
+    assert len(codes) >= 15
+    for name in codes:
+        assert getattr(V, name) == getattr(JV, name), name
+    assert V.VIDIOC_DQBUF == 0xC0585611 and V.VIDIOC_S_FMT == 0xC0D05604
+    for code in ("MJPG", "JPEG", "YUYV", "\x01\x02\x03\x04"):
+        assert V.fourcc(code) == JV.fourcc(code)

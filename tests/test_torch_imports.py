@@ -28,6 +28,9 @@ import numpy as np
 import compeg_tpu_torch as T
 from compeg_tpu_torch import native
 from compeg_tpu_torch.tools import exp_relayout, validate
+from compeg_tpu_torch import mjpeg, v4l2
+from compeg_tpu_torch.parallel import multihost, sharding
+from compeg_tpu_torch.tools import dryrun_multiproc, enc, viewer
 data = np.load(sys.argv[1]).tobytes()
 assert T.encoder.encode(np.zeros((8, 8, 3), np.uint8), sampling="444")
 assert T.golden.decode_rgb(data).shape == (16, 24, 3)
@@ -38,6 +41,9 @@ outs = [T.Decoder(device="cpu").decode(data),
 assert all(o.shape == (16, 24, 3) for o in outs), [o.shape for o in outs]
 assert native.available() and "compeg_tpu_torch" in native.library_path()
 assert all(r["ok"] for r in exp_relayout.probes("cpu", groups=1))
+assert list(mjpeg.split_frames(data * 2)) == [data, data]
+assert T.decode_scaled(data, 2, device="cpu").shape == (4, 6, 3)
+sharding.dryrun(1, device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "compeg_tpu"))
 assert not bad, bad
@@ -84,7 +90,15 @@ def test_the_scan_covers_the_whole_port():
                  "compeg_tpu_torch/ops/relayout.py",
                  "compeg_tpu_torch/tools/exp_relayout.py",
                  "compeg_tpu_torch/golden.py", "compeg_tpu_torch/encoder.py",
-                 "compeg_tpu_torch/tools/validate.py", "chip_smoke.py"):
+                 "compeg_tpu_torch/tools/validate.py",
+                 "compeg_tpu_torch/mjpeg.py", "compeg_tpu_torch/v4l2.py",
+                 "compeg_tpu_torch/parallel/__init__.py",
+                 "compeg_tpu_torch/parallel/sharding.py",
+                 "compeg_tpu_torch/parallel/multihost.py",
+                 "compeg_tpu_torch/tools/viewer.py",
+                 "compeg_tpu_torch/tools/enc.py",
+                 "compeg_tpu_torch/tools/dryrun_multiproc.py",
+                 "chip_smoke.py"):
         assert must in names, must
 
 
