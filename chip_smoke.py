@@ -39,8 +39,14 @@ non-JPEG frame among them), each into StreamDecoder, and through the viewer
 every frame equal to the single-frame decode of the same frame. Then the
 banded decode of compeg_tpu_torch/parallel/sharding.py in a world of one
 NCCL rank: 8 4K frames in 4 bands in each mode and a 1080p stream at
-Ri = 7, equal to BatchDecoder and Decoder byte for byte. Any failure
-exits non-zero. The default
+Ri = 7, equal to BatchDecoder and Decoder byte for byte. Then the
+measurement tools of compeg_tpu_torch/tools in their quick forms, in
+process (bench, trace_ops default and exact, bench_stream on 16 frames,
+trace_sharded with one band, bench_scaling at one rank): each JSON line
+must parse, bench's fields be filled, the resident decode's device busy
+time lie within [0.8, 1.5] x K2's kernel time and under its event span,
+the stream's idle share in [0, 1] and the banded pixels equal the
+unbanded ones. Any failure exits non-zero. The default
 decode of the 4K frame must equal golden's byte for byte (its sha256), the
 small rasters must take both the
 16-byte and the word-wise store of the RGBA kernels and the 16-byte, 8-byte
@@ -163,7 +169,10 @@ def main() -> int:
     from compeg_tpu_torch.parallel import multihost as MH
     from compeg_tpu_torch.parallel import sharding as SH
     from compeg_tpu_torch.testdata.fake_v4l2 import FakeCamera
-    from compeg_tpu_torch.tools import exp_relayout, validate, viewer
+    from compeg_tpu_torch.tools import (bench as bench_tool, bench_scaling,
+                                        bench_stream, exp_relayout,
+                                        trace_ops, trace_sharded, validate,
+                                        viewer)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain IDCT in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -728,13 +737,6 @@ def main() -> int:
         f"{epilogue_ms['fancy']:.4f} ms beside K3 integer "
         f"{ms['K3 int']:.4f} ms, K3 float {ms['K3 float']:.4f} ms (medians "
         f"of {REPS} single calls, CUDA events) on {card}")
-    # Device time of one decode_prepared (upload, kernel and the gaps), and
-    # what torch.profiler sees of it.
-    trace_ms, trace_rows = profiling.trace_device_ms(
-        lambda: dec.decode_prepared(pf), frames=5)
-    log(f"(f) trace_device_ms of decode_prepared: {trace_ms:.4f} ms per "
-        f"frame (CUDA events); torch.profiler kernel rows: "
-        f"{[(round(t, 4), n, name[:40]) for t, n, name in trace_rows[:3]]}")
     prep_ms = wall_ms(lambda: dec.prepare(data4k))
     h2d_ms = wall_ms(lambda: dec.upload(pf))
     out4k = F.fused_decode_rgba(*base, pf.op, g)
@@ -1423,6 +1425,77 @@ def main() -> int:
     log(f"(l) the banded decode in {time.perf_counter() - t_l:.1f} s; "
         f"launches {banded_launches}")
 
+    # ---- (m) the measurement tools, in their quick forms ------------------
+    # In process, on the same card: each tool's last stdout line must parse
+    # as its JSON result. The resident decode's busy time must lie within
+    # [0.8, 1.5] x K2's burst time of phase (f): with the rows on the card
+    # K2 is all the card does.
+    def tool_line(mod, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        name = mod.__name__.rsplit('.', 1)[-1]
+        for line in buf.getvalue().splitlines():
+            log(f"(m) {name}: {line}")
+        require(rc == 0, f"tools.{name} {argv}: exit {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    def tools_quick():
+        res = {"bench": tool_line(bench_tool, ["--frames", "30", "--rounds",
+                                               "3"])}
+        for flag in ([], ["--exact"]):
+            res["trace_ops" + "".join(flag)] = tool_line(trace_ops, flag)
+        res["bench_stream"] = tool_line(bench_stream,
+                                   ["--device", "--frames", "16"])
+        res["trace_sharded"] = tool_line(trace_sharded, ["1"])
+        res["bench_scaling"] = tool_line(bench_scaling, ["--max-ranks", "1"])
+        return res
+
+    # Every torch.profiler session of this run lies in this phase, a few
+    # seconds apart: a session started a minute or more after the last one
+    # can lose device records (PERF.md section 7); trace_device_ms finds a
+    # launch without its device record and traces again. First
+    # decode_prepared's device busy total (kernels, device copies, memsets)
+    # beside the CUDA-event span around each call, which also holds the
+    # pageable upload and the host's gaps.
+    t_m = time.perf_counter()
+    traced = profiling.trace_device(lambda: dec.decode_prepared(pf), frames=5)
+    log(f"(m) decode_prepared per frame: device busy (trace_device_ms) "
+        f"{traced.total_ms:.4f} ms, CUDA-event span {traced.event_ms:.4f} ms "
+        f"on {card}; summed {traced.counted}; torch.profiler rows: "
+        f"{[(round(t, 4), n, name[:40]) for t, n, name in traced.rows[:3]]}")
+    require(0 < traced.total_ms < traced.event_ms,
+            f"decode_prepared's busy total {traced.total_ms} is not below "
+            f"its event span {traced.event_ms}")
+    res_m, tools_launches = drive(tools_quick)
+    b = res_m["bench"]
+    require(all(v is not None for v in b.values()) and b["device"]["name"],
+            f"tools.bench: a null field: {b}")
+    require(b["trace_ms"] <= b["trace_event_ms"],
+            f"tools.bench: trace_ms {b['trace_ms']} over its event span "
+            f"{b['trace_event_ms']}")
+    require(0.8 * ms["K2"] <= b["trace_ms"] <= 1.5 * ms["K2"],
+            f"tools.bench: trace_ms {b['trace_ms']} outside [0.8, 1.5] x K2's "
+            f"{ms['K2']} ms")
+    for key in ("trace_ops", "trace_ops--exact"):
+        t = res_m[key]
+        require(0 < t["trace_ms"] <= t["trace_event_ms"],
+                f"tools.{key}: device total {t['trace_ms']}, event span "
+                f"{t['trace_event_ms']}")
+    idle = res_m["bench_stream"]["stream"]["idle_share"]
+    require(0 <= idle <= 1, f"tools.bench_stream: idle share {idle}")
+    require(res_m["trace_sharded"]["equal"],
+            "tools.trace_sharded: the banded decode differs")
+    sc = res_m["bench_scaling"]
+    require(sc["counts"] == [1] and sc["value"] is not None and sc["valid"],
+            f"tools.bench_scaling: {sc}")
+    log(f"(m) the measurement tools in {time.perf_counter() - t_m:.1f} s on "
+        f"{card}: value {b['value']:.1f} frames/s, trace_ms "
+        f"{b['trace_ms']:.4f} (event span {b['trace_event_ms']:.4f}, K2 "
+        f"burst {ms['K2']:.4f}), stream idle share {idle:.3f}, banded / "
+        f"unbanded {res_m['trace_sharded']['ratio']:.3f}; launches "
+        f"{tools_launches}")
+
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
     # over the memory rate and operations over the float32 rate. Operations
@@ -1470,7 +1543,8 @@ def main() -> int:
                 "library_ms": None, **extra}
 
     launch_sets = [launches, batch_launches, {"stream": stream_launches},
-                   staged_batch_launches, capture_launches, banded_launches]
+                   staged_batch_launches, capture_launches, banded_launches,
+                   tools_launches]
 
     def relayout_entry(name, key, replaces, probe_name, **extra):
         res = next(r for r in tool if r["probe"] == probe_name)

@@ -31,6 +31,8 @@ from compeg_tpu_torch.tools import exp_relayout, validate
 from compeg_tpu_torch import mjpeg, v4l2
 from compeg_tpu_torch.parallel import multihost, sharding
 from compeg_tpu_torch.tools import dryrun_multiproc, enc, viewer
+from compeg_tpu_torch.tools import (bench, bench_host, bench_scaling,
+                                    bench_stream, trace_ops, trace_sharded)
 data = np.load(sys.argv[1]).tobytes()
 assert T.encoder.encode(np.zeros((8, 8, 3), np.uint8), sampling="444")
 assert T.golden.decode_rgb(data).shape == (16, 24, 3)
@@ -44,6 +46,8 @@ assert all(r["ok"] for r in exp_relayout.probes("cpu", groups=1))
 assert list(mjpeg.split_frames(data * 2)) == [data, data]
 assert T.decode_scaled(data, 2, device="cpu").shape == (4, 6, 3)
 sharding.dryrun(1, device="cpu")
+segments = bench_host.counts(data)["segments"]
+assert segments == T.analyze(data).total_restart_intervals
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "compeg_tpu"))
 assert not bad, bad
@@ -98,6 +102,13 @@ def test_the_scan_covers_the_whole_port():
                  "compeg_tpu_torch/tools/viewer.py",
                  "compeg_tpu_torch/tools/enc.py",
                  "compeg_tpu_torch/tools/dryrun_multiproc.py",
+                 "compeg_tpu_torch/tools/_common.py",
+                 "compeg_tpu_torch/tools/bench.py",
+                 "compeg_tpu_torch/tools/bench_host.py",
+                 "compeg_tpu_torch/tools/bench_stream.py",
+                 "compeg_tpu_torch/tools/bench_scaling.py",
+                 "compeg_tpu_torch/tools/trace_ops.py",
+                 "compeg_tpu_torch/tools/trace_sharded.py",
                  "chip_smoke.py"):
         assert must in names, must
 
