@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from compeg_tpu_torch/csrc with nvcc and its
-native host library from compeg_tpu_torch/native with the host C++ compiler,
-checks the kernels against their plain PyTorch versions and against the
-golden decoder's answers on small streams of every supported sampling and on
+native host library from compeg_tpu_torch/native with the host C++ compiler
+(whose scan-end search must agree with the parser's numpy search on the 4K
+frame), checks the kernels against their plain PyTorch versions and against
+the golden decoder's answers on small streams of every supported sampling and on
 the 4K benchmark frame, drives each Decoder path with the launch counters
 zeroed (the default decode, the exact decode, decode_ycbcr, the fancy decode,
 the planes epilogue, decode_scaled and the staged decode of fused=False,
@@ -39,7 +40,10 @@ non-JPEG frame among them), each into StreamDecoder, and through the viewer
 every frame equal to the single-frame decode of the same frame. Then the
 banded decode of compeg_tpu_torch/parallel/sharding.py in a world of one
 NCCL rank: 8 4K frames in 4 bands in each mode and a 1080p stream at
-Ri = 7, equal to BatchDecoder and Decoder byte for byte. Then the
+Ri = 7, equal to BatchDecoder and Decoder byte for byte, each launch gated
+to every band's MCUs inside the image (BandedFrame.band_mcus) and the
+banded kernels equal to their plain twins on every live MCU row with random
+words in the gated segments. Then the
 measurement tools of compeg_tpu_torch/tools in their quick forms, in
 process (bench, trace_ops default and exact, bench_stream on 16 frames,
 trace_sharded with one band, bench_scaling at one rank): each JSON line
@@ -156,7 +160,7 @@ def main() -> int:
     import torch.distributed as dist
 
     from compeg_tpu_torch import (CompegError, analyze, encoder, mjpeg,
-                                  native, profiling, testdata, v4l2)
+                                  native, parser, profiling, testdata, v4l2)
     from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder
     from compeg_tpu_torch.ops import _build
     from compeg_tpu_torch.ops import color as C
@@ -203,6 +207,18 @@ def main() -> int:
             f"the native library is not the port's: {native.library_path()}")
     log(f"(b) packer=native: built {native.library_path()} in "
         f"{time.perf_counter() - t0:.1f} s")
+    # The Python parser's scan-end search: the native one where the library
+    # is built, equal to the numpy search on the 4K frame's scan.
+    with open(BENCH, "rb") as f:
+        scan4k = analyze(f.read())
+    at = scan4k.scan_offset
+    end = native.find_scan_end(scan4k.source, at)
+    require(end == parser.scan_end(scan4k.source, at)
+            == at + len(scan4k.scan_data),
+            f"native.find_scan_end gave {end}, the numpy search "
+            f"{parser.scan_end(scan4k.source, at)}")
+    log(f"(b) native.find_scan_end on the 4K frame == the numpy search: "
+        f"the scan ends at byte {end}")
 
     def rgb(img):
         return F.rgba_to_rgb(img).cpu().numpy()
@@ -1325,8 +1341,83 @@ def main() -> int:
     # of 8 4K frames in 4 bands in each mode, and a 1920 x 1080 4:2:2 stream
     # at Ri = 7 (wm = 120 is no multiple of 7, so bands are cut at restart
     # boundaries and its last interval is short), each equal to
-    # BatchDecoder or Decoder on the card byte for byte.
+    # BatchDecoder or Decoder on the card byte for byte. Every band frame of
+    # a launch is gated to its band's MCUs inside the image: the launch's
+    # per-frame counts (read from the parameters it was given) must be each
+    # BandedFrame's band_mcus, and the kernels must equal their plain twins,
+    # given the same counts, on every live MCU row of every band frame, with
+    # random words in the rows of the gated segments.
     t_l = time.perf_counter()
+
+    def launch_gates(fn):
+        """fn() with the parameters of each kernel launch it makes kept:
+        (result, [(entry, per-frame MCU counts)])."""
+        seen = []
+        real = _build.launch
+
+        def spy(name, *tensors, params, lib=None):
+            gate = F.BandGate(params.image_mcus, params.bands, params.band0)
+            seen.append((name, [gate.mcus(params.total_mcus, f)
+                                if params.bands else params.total_mcus
+                                for f in range(params.frames)]))
+            return real(name, *tensors, params=params, lib=lib)
+
+        _build.launch = spy
+        try:
+            return fn(), seen
+        finally:
+            _build.launch = real
+
+    def gated_vs_twins(tag, bands, pf0, geom, exact, planes):
+        """The banded kernel of one mode on ``bands`` (BandedFrames of one
+        geometry, their gated segments' rows filled with random words)
+        against its plain twin on every live MCU row of each band frame:
+        the integer modes equal, K3 float within 1, K2 within 2 and at most
+        1e-5 of the samples off by more than 1 (phases c and d)."""
+        rows_np, mcus = SH.stack_banded(bands)
+        gated = bands[0].seg_mcus == 0
+        rows_np[:, gated] = np.random.default_rng(11).integers(
+            -2 ** 31, 2 ** 31, rows_np[:, gated].shape, dtype=np.int64)
+        nb = rows_np.shape[1]
+        flat = torch.from_numpy(rows_np.reshape(-1, *rows_np.shape[2:])).cuda()
+        bg = SH.band_geometry(geom, bands[0].band_rows)
+        gate = SH.band_gate(geom, nb, 0)
+        counts = [gate.mcus(bg.total_mcus, f) for f in range(len(flat))]
+        require(counts == mcus.reshape(-1).tolist(),
+                f"{tag}: gate counts {counts} are not band_mcus")
+        args = (flat, bands[0].nseg, pf0.tables, pf0.op, bg)
+        if planes:
+            got = F.fused_decode_planes(*args, exact=exact, gate=gate)
+        elif exact:
+            got = F.fused_decode_rgba_exact(*args, gate)
+        else:
+            got = F.fused_decode_rgba(*args, gate)
+        err, live_rows = 0, 0
+        for f, m in enumerate(counts):
+            live = m // bg.width_mcus
+            one = (flat[f], bands[0].nseg, pf0.tables, pf0.op, bg)
+            if planes:
+                twin = F.fused_decode_planes_reference(*one, exact, m)
+                for c, (_, v) in enumerate(bg.samplings):
+                    n = live * 8 * v
+                    err = max(err, int((got[c][f][:n].int() - twin[c][:n]
+                                        .int()).abs().max()) if n else 0)
+            else:
+                twin = (F.fused_decode_rgba_exact_reference if exact else
+                        F.fused_decode_rgba_reference)(*one, m)
+                n = live * 8 * max(v for _, v in bg.samplings)
+                if n:
+                    mx, frac = pixel_stats(rgb(got[f][:n]), rgb(twin[:n]))
+                    require(frac <= 1e-5, f"{tag}: frame {f} frac>1 {frac}")
+                    err = max(err, mx)
+            live_rows += live
+        require(err <= (0 if exact else 1 if planes else 2),
+                f"{tag}: the banded kernel is {err} from its plain twin")
+        log(f"(l) {tag}: {len(counts)} band frames gated to {counts[:nb]} "
+            f"MCUs a frame (== band_mcus), {live_rows} live MCU rows == the "
+            f"plain twins' (max |diff| {err}) with random words in the "
+            f"{int(gated.sum())} gated segments of each frame")
+
     dist.init_process_group("nccl", world_size=1, rank=0,
                             init_method=f"tcp://127.0.0.1:{MH.free_port()}")
     banded_launches = {}
@@ -1346,16 +1437,24 @@ def main() -> int:
                 {"fancy_upsampling": True}, "planes"),
         }
         bands = [SH.prepare_banded(analyze(f), 4) for f in frames8]
-        brows = torch.from_numpy(SH.stack_banded(bands)).cuda()
+        brows_np, bmcus = SH.stack_banded(bands)
+        brows = torch.from_numpy(brows_np).cuda()
         bgeom = pf.geom
+        require(bmcus.tolist() == [[16320, 16320, 16320, 15840]] * 8,
+                f"4K in 4 bands: band_mcus {bmcus.tolist()}")
         for name, (knobs, key) in band_modes.items():
             bd = BatchDecoder(**knobs)
             sd = BatchDecoder(**knobs)  # the banded decode's own staging
             want = bd.decode(frames8)
-            out, lcounts = drive(lambda: SH.decode_frames_sharded(
-                frames8, mesh, 4, decoder=sd))
+            (out, gates), lcounts = drive(lambda: launch_gates(
+                lambda: SH.decode_frames_sharded(frames8, mesh, 4,
+                                                 decoder=sd)))
             require(lcounts[key] == 1 and sum(lcounts.values()) == 1,
                     f"banded {name}: launches {lcounts}, not one of {key}")
+            require(len(gates) == 1
+                    and gates[0][1] == bmcus.reshape(-1).tolist(),
+                    f"banded {name}: the launch's per-frame MCU counts "
+                    f"{gates} are not the BandedFrames' band_mcus")
             banded_launches[key] = banded_launches.get(key, 0) + lcounts[key]
             got = F.rgba_to_rgb(SH.gather_global(out, mesh)).cpu().numpy()
             require(np.array_equal(got, want),
@@ -1382,7 +1481,8 @@ def main() -> int:
             del rows_b
             log(f"(l) banded {name}: 8 4K frames in 4 bands of "
                 f"{bands[0].band_rows} MCU rows == BatchDecoder byte for "
-                f"byte, one launch of {key}; per frame: banded "
+                f"byte, one launch of {key} gated to band_mcus "
+                f"{bmcus[0].tolist()}; per frame: banded "
                 f"{banded_ms[name][0]:.4f} ms on the card (rows resident; "
                 f"BatchDecoder's decode_rows {banded_ms[name][1]:.4f} ms), "
                 f"wall with the host's prepare and upload "
@@ -1390,6 +1490,12 @@ def main() -> int:
                 f"decode_prepared {banded_ms[name][3]:.3f} ms); medians of "
                 f"5 CUDA-event timings and 3 walls, on {card}")
         del brows
+        for tag, exact, planes in (("K2", False, False),
+                                   ("K2x", True, False),
+                                   ("K3 integer", True, True),
+                                   ("K3 float", False, True)):
+            pf0 = Decoder(exact_idct=exact).prepare(frames8[0])
+            gated_vs_twins(f"4K {tag}", bands, pf0, bgeom, exact, planes)
         # The Ri = 7 stream, from the 4K frame's top-left 1080p by the
         # port's encoder.
         t0 = time.perf_counter()
@@ -1420,6 +1526,16 @@ def main() -> int:
                     f"banded Ri = 7 {name}: differs from Decoder")
             log(f"(l) banded Ri = 7 {name}: 2 frames in 4 bands == "
                 f"Decoder().decode byte for byte, one launch of {key}")
+        bands7 = [SH.prepare_banded(img7, 4)] * 2
+        require(bands7[0].band_mcus.tolist() == [4200, 4200, 4200, 3600]
+                and bands7[0].seg_mcus[3, 514] == 2,
+                f"Ri = 7 in 4 bands: band_mcus {bands7[0].band_mcus}")
+        for tag, exact, planes in (("K2", False, False),
+                                   ("K2x", True, False),
+                                   ("K3 integer", True, True)):
+            pf7 = Decoder(exact_idct=exact).prepare(data7)
+            gated_vs_twins(f"Ri = 7 {tag}", bands7, pf7, pf7.geom, exact,
+                           planes)
     finally:
         dist.destroy_process_group()
     log(f"(l) the banded decode in {time.perf_counter() - t_l:.1f} s; "

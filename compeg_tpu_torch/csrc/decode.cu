@@ -1,6 +1,6 @@
 // The decode kernels of compeg_tpu_torch, for Hopper (sm_90a).
 //
-// fused_decode_kernel<IDCT, OUT> replaces the Pallas kernels built from
+// fused_decode_kernel<IDCT, OUT, BANDED> replaces the Pallas kernels built from
 // _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA assembly after
 // them, and the entropy kernel entropy_decode (compeg_tpu/ops/entropy.py:440,
 // body _make_kernel :365). One launch decodes a batch of same-geometry
@@ -26,6 +26,11 @@
 //   K2s <kIdctScaled, kOutRgba>    fused_decode_blocks with scale=k
 //       (fused.py:140-161): the k-point scaled IDCT, k in {1, 2, 4}, and the
 //       composite of k x k blocks into the [ceil(H*k/8), ceil(W*k/8)] raster
+//
+// K2, K2x and K3 have a third argument BANDED: the banded decode
+// (parallel/sharding.py) launches <IDCT, OUT, true>, whose frames are bands
+// that decode only their MCUs inside the image (DecodeParams::bands), the
+// JAX package's seg_mcus gate; every other launch takes <IDCT, OUT, false>.
 //
 // What bounds them on the H100. None comes near the card's memory or FMA
 // rate: a 4K frame is 2 MB in and 33 MB out, microseconds of traffic. The
@@ -600,7 +605,11 @@ __device__ __forceinline__ void zero_tile(short* coef, int tile_words,
   }
 }
 
-template <int IDCT, int OUT>
+// BANDED: the launch's frames are bands, each gated to its MCUs inside the
+// image (frame_mcus). A kernel of its own, so that the gate's code cannot
+// change how the compiler schedules the non-banded launches: K2 took 3 %
+// longer when one kernel served both (PERF.md, PR 11).
+template <int IDCT, int OUT, bool BANDED>
 __global__ void __launch_bounds__(Tile<IDCT>::THREADS, Tile<IDCT>::BLOCKS)
 fused_decode_kernel(const uint32_t* __restrict__ rows,
                     const int* __restrict__ tables, const void* __restrict__ op,
@@ -624,8 +633,12 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   // coordinates below are the frame's own, and only the row and output
   // pointers move with the frame, so no block straddles two frames.
   const size_t frame = blockIdx.y;
-  rows += frame * p.frame_rows * p.words;
+  const int mcus = BANDED ? frame_mcus(p, (int)frame) : p.total_mcus;
   const int seg0 = blockIdx.x * K2_SEGS;
+  // A block whose first segment holds no MCU of its band (the rows or the
+  // band past the image) reads no bits and writes nothing.
+  if (BANDED && segment_mcus(p, seg0, mcus) <= 0) return;
+  rows += frame * p.frame_rows * p.words;
   // The block's rows lie one after the other: bring them, then the tables,
   // into shared memory while the block sets itself up, so that the bit
   // readers' refills do not wait on device memory.
@@ -654,13 +667,13 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   // Segment counts only shrink at the frame's end, so the block's first
   // segment has the most MCUs; K1 writes all ri MCUs of every segment, the
   // padding ones zero, even where a short segment is the block's first.
-  const int m_end = OUT == kOutCoefs ? p.ri : segment_mcus(p, seg0);
+  const int m_end = OUT == kOutCoefs ? p.ri : segment_mcus(p, seg0, mcus);
 
   // Phase-1 state of the segment this thread decodes: the block's segment
   // `slot`, or none (slot < 0) past warp 0.
   const int slot = tid < K2_SEGS ? tid : -1;
   const int my_seg = seg0 + slot;
-  const int my_nm = slot >= 0 ? segment_mcus(p, my_seg) : 0;
+  const int my_nm = slot >= 0 ? segment_mcus(p, my_seg, mcus) : 0;
   BitReader br;
   if (my_nm > 0)
     br.init(cached ? reinterpret_cast<const uint32_t*>(row_cache) + slot * p.words
@@ -733,29 +746,47 @@ inline size_t fused_smem_bytes(const DecodeParams& p, int elem_bytes) {
          (size_t)K2_SEGS * tile_stride(p.dus, elem_bytes) * elem_bytes;
 }
 
+template <int IDCT, int OUT, bool BANDED>
+int launch_kernel(const void* rows, const void* tables, const void* op,
+                  Outputs out, const DecodeParams* p, void* stream) {
+  auto kernel = fused_decode_kernel<IDCT, OUT, BANDED>;
+  const size_t smem = fused_smem_bytes(*p, sizeof(typename Tile<IDCT>::T));
+  // More than 48 KB of dynamic shared memory has to be allowed, once for
+  // each instantiation and device; the most allowed so far is kept.
+  static std::atomic<size_t> allowed[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > allowed[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev].store(smem, std::memory_order_release);
+  }
+  const dim3 grid((p->nseg + K2_SEGS - 1) / K2_SEGS, p->frames);
+  kernel<<<grid, Tile<IDCT>::THREADS, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)rows, (const int*)tables, op, out, *p);
+  return (int)cudaSuccess;
+}
+
+// A banded launch (p->bands > 0) takes the BANDED kernel; only the batched
+// K2, K2x and K3 have one (parallel/sharding.py launches no other).
 template <int IDCT, int OUT>
 int launch_fused(const void* rows, const void* tables, const void* op,
                  Outputs out, const DecodeParams* p, void* stream) {
   if (p->ntables < 1 || p->ntables > MAX_TABLES) return (int)cudaErrorInvalidValue;
   if (p->nseg > 0 && p->frames > 0) {
-    auto kernel = fused_decode_kernel<IDCT, OUT>;
-    const size_t smem = fused_smem_bytes(*p, sizeof(typename Tile<IDCT>::T));
-    // More than 48 KB of dynamic shared memory has to be allowed, once for
-    // each instantiation and device; the most allowed so far is kept.
-    static std::atomic<size_t> allowed[MAX_DEVICES];
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (smem > allowed[dev].load(std::memory_order_acquire)) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      allowed[dev].store(smem, std::memory_order_release);
+    int err;
+    if (p->bands > 0) {
+      if constexpr (OUT == kOutCoefs || IDCT == kIdctScaled)
+        return (int)cudaErrorInvalidValue;
+      else
+        err = launch_kernel<IDCT, OUT, true>(rows, tables, op, out, p, stream);
+    } else {
+      err = launch_kernel<IDCT, OUT, false>(rows, tables, op, out, p, stream);
     }
-    const dim3 grid((p->nseg + K2_SEGS - 1) / K2_SEGS, p->frames);
-    kernel<<<grid, Tile<IDCT>::THREADS, smem, (cudaStream_t)stream>>>(
-        (const uint32_t*)rows, (const int*)tables, op, out, *p);
+    if (err != cudaSuccess) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -86,6 +86,13 @@ struct DecodeParams {
   // component c is table_of[2 * c], its AC table table_of[2 * c + 1].
   int ntables;
   int table_of[6];
+  // A banded launch (parallel/sharding.py): frame f is band band0 + f % bands
+  // of an image of image_mcus MCUs, cut into bands of total_mcus MCUs, and
+  // holds only its band's MCUs inside the image (frame_mcus). bands = 0:
+  // every frame holds total_mcus.
+  int bands;
+  int band0;
+  int image_mcus;
 };
 
 // One Huffman table as ops/entropy.py pack_tables lays it out, in 16-bit
@@ -106,10 +113,22 @@ constexpr int TAB_HALVES = (TAB_VALUES + 128 + 7) / 8 * 8;
 constexpr int TAB_WORDS = TAB_HALVES / 2;
 constexpr int MAX_TABLES = 6;  // a DC and an AC table for each of 3 components
 
-// MCUs segment `seg` holds: min(ri, total_mcus - seg * ri), 0 past the end.
-__device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg) {
+// MCUs frame `frame` of a banded launch (bands > 0) holds of its band:
+// clip(image_mcus - band * total_mcus, 0, total_mcus), the sum over the band
+// of the JAX package's seg_mcus (compeg_tpu/parallel/sharding.py
+// prepare_banded). A band past the image holds none.
+__device__ __forceinline__ int frame_mcus(const DecodeParams& p, int frame) {
+  const long long left = (long long)p.image_mcus -
+                         (long long)(p.band0 + frame % p.bands) * p.total_mcus;
+  return left <= 0 ? 0 : (left < p.total_mcus ? (int)left : p.total_mcus);
+}
+
+// MCUs segment `seg` of a frame of `mcus` MCUs holds:
+// min(ri, mcus - seg * ri), none (<= 0) past the end.
+__device__ __forceinline__ int segment_mcus(const DecodeParams& p, int seg,
+                                            int mcus) {
   if (seg >= p.nseg) return 0;
-  long long left = (long long)p.total_mcus - (long long)seg * p.ri;
+  long long left = (long long)mcus - (long long)seg * p.ri;
   return left < p.ri ? (int)left : p.ri;
 }
 

@@ -13,8 +13,10 @@ build is never loaded. It never loads or builds the JAX package's library.
 ``COMPEG_TPU_TORCH_NO_NATIVE`` is set; callers must handle both.
 
 Of the library's entry points the port binds what it calls: the parse, the
-scanners and the linear row packer. The ``[G, W, 8, 128]`` block packers and
-the raster-tiled slot permutation are TPU layouts and are not bound.
+scanners (:func:`scan_info`, and :func:`find_scan_end`, the parser's search
+for the marker that ends a scan) and the linear row packer. The
+``[G, W, 8, 128]`` block packers and the raster-tiled slot permutation are
+TPU layouts and are not bound.
 """
 
 from __future__ import annotations
@@ -112,6 +114,12 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64,
             ctypes.c_void_p,
         ]
+        lib.compeg_find_scan_end.restype = ctypes.c_int64
+        lib.compeg_find_scan_end.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int64,
+            ctypes.c_int64,
+        ]
         lib.compeg_pack_rows.restype = ctypes.c_int
         lib.compeg_pack_rows.argtypes = [
             ctypes.c_char_p,
@@ -158,6 +166,16 @@ def scan_info(
     if rc != 0:
         bail(f"native scan_info failed ({rc})")
     return n.value, mx.value
+
+
+def find_scan_end(data, offset: int = 0) -> int:
+    """Offset (into ``data``) of the marker terminating the scan that starts
+    at ``offset``: the first ``FF`` followed by a byte that is not ``00``,
+    ``FF`` or RST0-7; ``len(data)`` if there is none."""
+    lib = _loaded()
+    if not isinstance(data, bytes):
+        data = bytes(data)  # bytearray and memoryview callers
+    return int(lib.compeg_find_scan_end(data, len(data), offset))
 
 
 class CompegImageInfo(ctypes.Structure):

@@ -99,6 +99,9 @@ class DecodeParams(ctypes.Structure):
         ("plane_pitch", ctypes.c_int32 * 3),
         ("ntables", ctypes.c_int32),
         ("table_of", ctypes.c_int32 * 6),
+        ("bands", ctypes.c_int32),
+        ("band0", ctypes.c_int32),
+        ("image_mcus", ctypes.c_int32),
     ]
 
 
@@ -112,7 +115,8 @@ class RelayoutParams(ctypes.Structure):
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
                 blk=8, zlen=64, frames=1, frame_rows=0,
-                composite=None, planes=None, table_of=None) -> DecodeParams:
+                composite=None, planes=None, table_of=None,
+                gate=None) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
     kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
     ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
@@ -124,7 +128,11 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
     col)`` each, read by the planes kernels; the planes' pitches follow
     ``width_mcus``. ``table_of`` maps component ``c``'s DC and AC table to
     rows ``table_of[2 * c]`` and ``table_of[2 * c + 1]`` of the packed
-    tables (``EntropyTables.table_of``); without it no kernel launches."""
+    tables (``EntropyTables.table_of``); without it no kernel launches.
+    ``gate`` is a banded launch's ``(image_mcus, bands, first)``
+    (:class:`compeg_tpu_torch.ops.fused.BandGate`): frame ``f`` is band
+    ``first + f % bands`` of an image of ``image_mcus`` MCUs and holds only
+    its MCUs inside the image; without it every frame holds ``total_mcus``."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -157,6 +165,11 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                              f"{len(samplings)} components onto packed rows")
         p.ntables = max(table_of) + 1
         p.table_of[:len(table_of)] = table_of
+    if gate is not None:
+        p.image_mcus, p.bands, p.band0 = gate
+        if p.bands < 1 or p.band0 < 0:
+            raise ValueError(f"band gate {tuple(gate)}: bands must be at "
+                             "least 1 and the first band at least 0")
     slot = 0
     for i, c in enumerate(du_to_comp):
         p.du_to_comp[i] = c

@@ -25,13 +25,16 @@ A batch: K2, K2x and K3 also take the rows of B same-geometry frames as one
 launch, the frame being the grid's second dimension; the output gains a
 leading ``B``. ``nseg`` and ``geom`` stay one frame's. (The JAX package
 concatenates the frames' blocks along its grid, compeg_tpu/batch.py:71-114.)
+A banded batch (``parallel/sharding.py``) adds a :class:`BandGate`: each
+frame is a band of a taller image and decodes only its MCUs inside the
+image.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +55,31 @@ def _check_op(op: torch.Tensor, shape, dtype, device, name: str) -> None:
     if op.is_cuda and op.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (the "
                          "kernels load it in vectors)")
+
+
+class BandGate(NamedTuple):
+    """The per-frame MCU gate of a banded launch, the counterpart of the
+    JAX package's ``seg_mcus`` (compeg_tpu/parallel/sharding.py
+    prepare_banded): frame ``f`` of the launch is band ``first + f % bands``
+    of an image of ``image_mcus`` MCUs cut into bands of ``geom.total_mcus``
+    MCUs, and holds :meth:`mcus` of them, 0 for a band past the image.
+
+    A gated MCU (past the image's last) is not decoded: the kernels read
+    none of its bits and write none of its pixels, which keep what the
+    output buffer held; the plain twins give it zero coefficients. Its
+    pixels lie in MCU rows at or past the image's MCU-padded height, which
+    the banded decode crops and the fancy filter's content-edge clamp never
+    reads, so no kept pixel depends on one."""
+
+    image_mcus: int
+    bands: int
+    first: int = 0
+
+    def mcus(self, band_mcus: int, frame: int) -> int:
+        """MCUs frame ``frame`` holds of its band's ``band_mcus``
+        (csrc/entropy.cuh ``frame_mcus``)."""
+        band = self.first + frame % self.bands
+        return max(0, min(self.image_mcus - band * band_mcus, band_mcus))
 
 
 def _frames(rows: torch.Tensor) -> Optional[int]:
@@ -140,7 +168,7 @@ def plane_store_route(ptr: int, h: int) -> str:
     return "8-byte" if ptr % 8 == 0 else "byte"
 
 
-def _params(rows, nseg, tables, geom, blk=8):
+def _params(rows, nseg, tables, geom, blk=8, gate=None):
     return _build.make_params(
         nseg, rows.shape[-1], geom.ri, geom.total_mcus, geom.du_to_comp,
         samplings=geom.samplings, width=geom.width, height=geom.height,
@@ -149,7 +177,7 @@ def _params(rows, nseg, tables, geom, blk=8):
         frame_rows=rows.shape[-2],
         composite=composite_offsets(tuple(map(tuple, geom.samplings)), blk),
         planes=plane_offsets(tuple(map(tuple, geom.samplings))),
-        table_of=tables.table_of,
+        table_of=tables.table_of, gate=gate,
     )
 
 
@@ -159,51 +187,60 @@ def _batched(shape, rows):
     return tuple(shape) if b is None else (b, *shape)
 
 
-def _per_frame(fn, rows):
-    """``fn(frame rows)`` for one frame, or stacked over a batch's frames."""
+def _per_frame(fn, rows, geom, gate=None):
+    """``fn(frame rows, its MCU count)`` for one frame, or stacked over a
+    batch's frames; a frame's count is ``geom.total_mcus`` or its band's
+    under ``gate``."""
+    def mcus(f):
+        return geom.total_mcus if gate is None else gate.mcus(
+            geom.total_mcus, f)
+
     if _frames(rows) is None:
-        return fn(rows)
-    outs = [fn(r) for r in rows]
+        return fn(rows, mcus(0))
+    outs = [fn(r, mcus(f)) for f, r in enumerate(rows)]
     if isinstance(outs[0], tuple):
         return tuple(torch.stack(p) for p in zip(*outs))
     return torch.stack(outs)
 
 
-def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8):
+def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8, gate=None):
     out = torch.empty(_batched((geom.height, geom.width), rows),
                       dtype=torch.int32, device=rows.device)
     _build.launch(entry, rows, tables.packed, op, out,
-                  params=_params(rows, nseg, tables, geom, blk))
+                  params=_params(rows, nseg, tables, geom, blk, gate))
     _build.LAUNCHES[key] += 1
     return out
 
 
 def fused_decode_rgba(rows: torch.Tensor, nseg: int, tables: EntropyTables,
-                      lq_t: torch.Tensor, geom) -> torch.Tensor:
+                      lq_t: torch.Tensor, geom,
+                      gate: Optional[BandGate] = None) -> torch.Tensor:
     """Decode a frame to packed RGBA ``[H, W]`` int32 (kernel K2), or a
     ``[B, R, W]`` batch to ``[B, H, W]`` in one launch.
 
     ``rows`` are the packed segment words ``[>= nseg, W]`` int32, ``lq_t``
     the operators of :func:`~compeg_tpu_torch.ops.idct.idct_operators`, and
-    ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`."""
+    ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`; ``gate``
+    makes the frames bands (:class:`BandGate`)."""
     if _check_args(rows, nseg, tables, lq_t, geom, 64):
-        return _per_frame(lambda r: fused_decode_rgba_reference(
-            r, nseg, tables, lq_t, geom), rows)
+        return _per_frame(lambda r, m: fused_decode_rgba_reference(
+            r, nseg, tables, lq_t, geom, m), rows, geom, gate)
     return _launch_rgba("compeg_fused_decode", "fused", rows, nseg, tables,
-                        lq_t, geom)
+                        lq_t, geom, gate=gate)
 
 
 def fused_decode_rgba_exact(rows: torch.Tensor, nseg: int,
                             tables: EntropyTables, qz: torch.Tensor,
-                            geom) -> torch.Tensor:
+                            geom, gate: Optional[BandGate] = None
+                            ) -> torch.Tensor:
     """:func:`fused_decode_rgba` with the exact integer IDCT (kernel K2x);
     ``qz`` are the quantizers of
     :func:`~compeg_tpu_torch.ops.int_idct.int_quantizers`."""
     if _check_args(rows, nseg, tables, qz, geom, None):
-        return _per_frame(lambda r: fused_decode_rgba_exact_reference(
-            r, nseg, tables, qz, geom), rows)
+        return _per_frame(lambda r, m: fused_decode_rgba_exact_reference(
+            r, nseg, tables, qz, geom, m), rows, geom, gate)
     return _launch_rgba("compeg_fused_decode_exact", "fused_exact", rows,
-                        nseg, tables, qz, geom)
+                        nseg, tables, qz, geom, gate=gate)
 
 
 def scaled_geometry(geom, k: int):
@@ -237,14 +274,16 @@ def plane_shapes(geom):
 
 def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                         op: torch.Tensor, geom, exact: bool = False,
-                        out: Optional[Sequence[torch.Tensor]] = None
+                        out: Optional[Sequence[torch.Tensor]] = None,
+                        gate: Optional[BandGate] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """Decode a frame to one u8 plane per component (kernel K3), see
     :func:`plane_shapes`; a ``[B, R, W]`` batch gives ``[B, Hc, Wc]`` planes
     in one launch. ``op`` is ``lq_t`` for the float IDCT, or the integer
     quantizers when ``exact``. ``out`` are the planes to write into,
     contiguous u8 tensors of those shapes on the rows' device that may start
-    at any byte (:func:`plane_store_route`); new ones by default."""
+    at any byte (:func:`plane_store_route`); new ones by default. ``gate``
+    makes the frames bands (:class:`BandGate`)."""
     shapes = [_batched(s, rows) for s in plane_shapes(geom)]
     if out is not None and (len(out) != len(shapes) or any(
             t.dtype != torch.uint8 or tuple(t.shape) != s
@@ -253,8 +292,8 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
         raise ValueError(f"out must be contiguous uint8 planes {shapes} on "
                          f"{rows.device}")
     if _check_args(rows, nseg, tables, op, geom, None if exact else 64):
-        planes = _per_frame(lambda r: fused_decode_planes_reference(
-            r, nseg, tables, op, geom, exact), rows)
+        planes = _per_frame(lambda r, m: fused_decode_planes_reference(
+            r, nseg, tables, op, geom, exact, m), rows, geom, gate)
         if out is None:
             return planes
         for t, plane in zip(out, planes):
@@ -266,7 +305,7 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
              else "compeg_fused_decode_planes")
     _build.launch(entry, rows, tables.packed, op,
                   *(planes + [None] * (3 - len(planes))),
-                  params=_params(rows, nseg, tables, geom))
+                  params=_params(rows, nseg, tables, geom, gate=gate))
     _build.LAUNCHES["planes"] += 1
     return tuple(planes)
 
@@ -319,26 +358,30 @@ def composite_rgba(pixels: torch.Tensor, geom, blk: int = 8) -> torch.Tensor:
     return pack_rgba(y, c1, c2) if geom.rgb else ycbcr_to_rgba(y, c1, c2)
 
 
-def _coefficients(rows, nseg, tables, geom):
-    return entropy_decode_reference(rows, nseg, tables, geom.ri,
-                                    geom.total_mcus, geom.du_to_comp)
+def _coefficients(rows, nseg, tables, geom, mcus=None):
+    return entropy_decode_reference(
+        rows, nseg, tables, geom.ri,
+        geom.total_mcus if mcus is None else mcus, geom.du_to_comp)
 
 
 def fused_decode_rgba_reference(rows: torch.Tensor, nseg: int,
                                 tables: EntropyTables, lq_t: torch.Tensor,
-                                geom) -> torch.Tensor:
+                                geom, mcus: Optional[int] = None
+                                ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_decode_rgba`, on any device:
     :func:`entropy_decode_reference` -> :func:`idct_pixels` ->
-    :func:`composite_rgba`."""
-    coeffs = _coefficients(rows, nseg, tables, geom)
+    :func:`composite_rgba`. ``mcus`` is the frame's MCU count where a
+    :class:`BandGate` gates it (``geom.total_mcus`` by default)."""
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
     return composite_rgba(idct_pixels(coeffs, lq_t), geom)
 
 
 def fused_decode_rgba_exact_reference(rows: torch.Tensor, nseg: int,
                                       tables: EntropyTables, qz: torch.Tensor,
-                                      geom) -> torch.Tensor:
+                                      geom, mcus: Optional[int] = None
+                                      ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_decode_rgba_exact`."""
-    coeffs = _coefficients(rows, nseg, tables, geom)
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
     return composite_rgba(idct_pixels_int(coeffs, qz), geom)
 
 
@@ -353,10 +396,11 @@ def fused_decode_scaled_reference(rows: torch.Tensor, nseg: int,
 
 def fused_decode_planes_reference(rows: torch.Tensor, nseg: int,
                                   tables: EntropyTables, op: torch.Tensor,
-                                  geom, exact: bool = False
+                                  geom, exact: bool = False,
+                                  mcus: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of :func:`fused_decode_planes`."""
-    coeffs = _coefficients(rows, nseg, tables, geom)
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
     pixels = idct_pixels_int(coeffs, op) if exact else idct_pixels(coeffs, op)
     return component_planes(pixels, geom)
 

@@ -31,12 +31,20 @@ decodes them as ``B_l * NB_l`` frames of the band's geometry
 (``band_rows`` MCU rows high) in ONE launch of the batched kernels, which
 take frames along ``blockIdx.y``: K2 for nearest chroma, K2x with
 ``exact_idct``, and K3 followed by ``ops/color.finalize_planes`` for fancy
-chroma. The kernels count a band's MCUs as ``band_rows * wm``, so the
-image's short final interval and the bands that lie wholly past the image
-decode garbage bits in MCUs past the image's last one (they terminate, as on
-any bits). Those MCUs land only in rows at or past the MCU-padded height,
-which are cropped, and the fancy filter's content-edge clamp keeps them out
-of the last real rows.
+chroma.
+
+**The band gate.** As the JAX package gates every segment by its
+``seg_mcus``, each band frame decodes only its MCUs inside the image:
+``clip(total_mcus - b * band_rows * wm, 0, band_rows * wm)`` for band ``b``
+(:func:`band_mcus`, ``BandedFrame.band_mcus``), which the launch derives
+from three scalars (:class:`~compeg_tpu_torch.ops.fused.BandGate`: the
+image's MCUs, the bands of a frame in the launch and the first one's
+index). The image's short final interval, the last band's rows past the
+image and the bands wholly past it read no bits. Their pixels are not
+written (the plain twins give them zero coefficients) and lie only in rows
+at or past the MCU-padded height, which are cropped; the fancy filter's
+content-edge clamp keeps them out of the last real rows, and a rank whose
+bands all lie past the image sends halos that no rank reads.
 
 **The halo.** The fancy (triangle) vertical filter needs the chroma row
 just above and just below each rank's shard: :func:`exchange_halos` swaps
@@ -125,6 +133,9 @@ class BandedFrame:
     nseg:       segments in each band, ``band_rows * wm / Ri`` (whole
                 intervals, the same for every band)
     band_rows:  MCU rows per band (trailing bands may be padding)
+    band_mcus:  ``[n_bands]`` int32, the MCUs of each band inside the image
+                (:func:`band_mcus`): the JAX ``seg_mcus`` summed per band,
+                0 for a band past the image; the kernels decode no other
     qz_by_slot: ``[DUS, 64]`` zigzag quantizers, the IDCT's constants
     image:      the analysed frame (geometry and Huffman tables)
 
@@ -134,8 +145,20 @@ class BandedFrame:
     rows: np.ndarray
     nseg: int
     band_rows: int
+    band_mcus: np.ndarray
     qz_by_slot: np.ndarray
     image: ImageData
+
+    @property
+    def seg_mcus(self) -> np.ndarray:
+        """``[n_bands, nseg]`` int32, the MCUs each segment of each band
+        decodes: ``min(Ri, band's MCUs - k * Ri)`` for its k-th segment, 0
+        past them (the JAX linear layout's ``seg_mcus``, segment by
+        segment)."""
+        ri = self.image.restart_interval
+        k = np.arange(self.nseg, dtype=np.int64)
+        return np.clip(self.band_mcus[:, None] - k * ri, 0, ri).astype(
+            np.int32)
 
 
 def band_rows_for(img: ImageData, n_bands: int) -> int:
@@ -150,6 +173,17 @@ def band_rows_for(img: ImageData, n_bands: int) -> int:
 def band_segments(img: ImageData, band_rows: int) -> int:
     """Restart segments in a band of ``band_rows`` MCU rows."""
     return band_rows * img.width_mcus // img.restart_interval
+
+
+def band_mcus(img: ImageData, n_bands: int) -> np.ndarray:
+    """``[n_bands]`` int32: the MCUs of each band that lie in the image,
+    ``clip(total_mcus - b * band_rows * wm, 0, band_rows * wm)``, the sum
+    over band ``b`` of the JAX package's ``seg_mcus`` on either of its
+    layouts."""
+    per_band = band_rows_for(img, n_bands) * img.width_mcus
+    b = np.arange(n_bands, dtype=np.int64)
+    return np.clip(img.total_mcus - b * per_band, 0, per_band).astype(
+        np.int32)
 
 
 def prepare_banded(img: ImageData, n_bands: int,
@@ -170,29 +204,43 @@ def prepare_banded(img: ImageData, n_bands: int,
     return BandedFrame(rows=rows[:n_bands * nseg_b].view(np.int32).reshape(
                            n_bands, nseg_b, width),
                        nseg=nseg_b, band_rows=band_rows,
+                       band_mcus=band_mcus(img, n_bands),
                        qz_by_slot=D.qz_by_slot_array(img), image=img)
 
 
-def stack_banded(frames: Sequence[BandedFrame]) -> np.ndarray:
-    """Stack banded frames of one geometry into ``[B, n_bands, nseg, W]``
-    int32, every frame's rows widened with zero words to the widest."""
+def stack_banded(frames: Sequence[BandedFrame]
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack banded frames of one geometry into the rows ``[B, n_bands,
+    nseg, W]`` int32, every frame's widened with zero words to the widest,
+    and their ``band_mcus``, ``[B, n_bands]`` int32 (the JAX function's
+    ``(words, seg_mcus)``)."""
     f0 = frames[0]
     for f in frames[1:]:
-        if f.rows.shape[:2] != f0.rows.shape[:2] or f.band_rows != f0.band_rows:
+        if (f.rows.shape[:2] != f0.rows.shape[:2] or f.band_rows != f0.band_rows
+                or not np.array_equal(f.band_mcus, f0.band_mcus)):
             bail("banded frames must share geometry and band count")
     width = max(f.rows.shape[2] for f in frames)
     out = np.zeros((len(frames),) + f0.rows.shape[:2] + (width,), np.int32)
     for i, f in enumerate(frames):
         out[i, :, :, :f.rows.shape[2]] = f.rows
-    return out
+    return out, np.stack([f.band_mcus for f in frames])
 
 
 def band_geometry(geom: FrameGeometry, band_rows: int) -> FrameGeometry:
     """The geometry the kernels decode one band as: ``band_rows`` MCU rows
-    of the frame's width, every row of them written."""
+    of the frame's width, of which the :func:`band_gate` keeps those inside
+    the image."""
     max_v = max(v for _, v in geom.samplings)
     return dataclasses.replace(geom, height=band_rows * 8 * max_v,
                                height_mcus=band_rows)
+
+
+def band_gate(geom: FrameGeometry, n_local: int, seq: int) -> F.BandGate:
+    """The launch's gate for a rank at seq coordinate ``seq`` holding
+    ``n_local`` bands of each of its frames: its band frame ``f`` is band
+    ``seq * n_local + f % n_local`` of an image of ``geom.total_mcus``
+    MCUs."""
+    return F.BandGate(geom.total_mcus, n_local, seq * n_local)
 
 
 def check_budget(geom: FrameGeometry, band_rows: int, frames: int,
@@ -289,7 +337,9 @@ def decode_batch_sharded(
     stream's ``tables`` and IDCT operand ``op`` (the mode's: integer with
     ``exact_idct``) on the same device, as ``Decoder.frame_constants``
     makes them. All band frames decode in one kernel launch (K2; K2x with
-    ``exact_idct``; K3 and the fancy epilogue with ``fancy_upsample``), and
+    ``exact_idct``; K3 and the fancy epilogue with ``fancy_upsample``),
+    each gated to its band's MCUs inside the image (:func:`band_gate`: the
+    rank's band ``j`` of a frame is the image's band ``s * NB_l + j``), and
     the seq neighbours swap halos where the fancy filter needs them.
 
     Returns packed RGBA int32 ``[B_l, rows_l, W]``: this rank's rows of the
@@ -311,16 +361,17 @@ def decode_batch_sharded(
     check_budget(geom, band_rows, b_l * nb_l, rows.numel() * 4,
                  max_device_bytes)
     bg = band_geometry(geom, band_rows)
+    gate = band_gate(geom, nb_l, s)
     flat = rows.contiguous().reshape(b_l * nb_l, r, w)
     shard_h = nb_l * bg.height
     if not fancy_upsample:
         decode = F.fused_decode_rgba_exact if exact_idct else F.fused_decode_rgba
-        out = decode(flat, nseg, tables, op, bg).reshape(b_l, shard_h,
-                                                         geom.width)
+        out = decode(flat, nseg, tables, op, bg, gate).reshape(
+            b_l, shard_h, geom.width)
     else:
         planes = [p.reshape(b_l, nb_l * p.shape[1], p.shape[2]) for p in
                   F.fused_decode_planes(flat, nseg, tables, op, bg,
-                                        exact=exact_idct)]
+                                        exact=exact_idct, gate=gate)]
         halos = exchange_halos(planes, geom, mesh)
 
         def frame(i):  # frame i's planes and halos -> its RGBA rows

@@ -463,41 +463,39 @@ class JpegParser:
         if sub.remaining() != 0:
             log.warning("SOS header has %d unparsed bytes", sub.remaining())
         # Scan the entropy-coded data for the terminating marker. RSTn and
-        # byte-stuffed FF 00 belong to the scan (reference: src/file.rs:164-191).
-        # Vectorized: the scan ends at the first FF whose successor is a real
-        # marker (not 00, not RST0-7, not another FF).
+        # byte-stuffed FF 00 belong to the scan (reference: src/file.rs:164-191):
+        # the native search where the host library is built, else numpy's.
+        # An error in the native search is raised, never hidden by the other.
+        from . import native
+
         data_offset = r.pos
-        data = self.data
-        n = len(data)
-        import numpy as np
-
-        # (The second byte of a stuffed FF00 / RSTn pair is never 0xFF, so a
-        # simple "FF followed by a real marker code" test cannot misfire on a
-        # consumed byte — no sequential pair tracking is needed.)
-        try:
-            from . import native
-
-            if native.available():
-                r.pos = native.find_scan_end(data, r.pos)
-                return SosSegment(
-                    tuple(comps), ss, se, ahal >> 4, ahal & 0xF,
-                    data_offset, r.pos - data_offset,
-                )
-        except Exception:  # pragma: no cover - fall through to numpy path
-            pass
-        arr = np.frombuffer(data, dtype=np.uint8, count=n - r.pos, offset=r.pos)
-        end = arr.size
-        if arr.size > 1:
-            ffs = np.nonzero(arr[:-1] == 0xFF)[0]
-            nxt = arr[ffs + 1]
-            real = (nxt != 0x00) & (nxt != 0xFF) & ((nxt < 0xD0) | (nxt > 0xD7))
-            hits = ffs[real]
-            if hits.size:
-                end = int(hits[0])
-        r.pos = r.pos + int(end)
+        find = native.find_scan_end if native.available() else scan_end
+        r.pos = find(self.data, r.pos)
         return SosSegment(
             tuple(comps), ss, se, ahal >> 4, ahal & 0xF, data_offset, r.pos - data_offset
         )
+
+
+def scan_end(data: bytes, offset: int = 0) -> int:
+    """Offset of the marker terminating the scan that starts at ``offset``,
+    vectorized: the first FF whose successor is a real marker (not 00, not
+    RST0-7, not another FF); ``len(data)`` if there is none. The numpy twin
+    of :func:`compeg_tpu_torch.native.find_scan_end`."""
+    import numpy as np
+
+    # (The second byte of a stuffed FF00 / RSTn pair is never 0xFF, so a
+    # simple "FF followed by a real marker code" test cannot misfire on a
+    # consumed byte — no sequential pair tracking is needed.)
+    arr = np.frombuffer(data, dtype=np.uint8, count=len(data) - offset,
+                        offset=offset)
+    if arr.size > 1:
+        ffs = np.nonzero(arr[:-1] == 0xFF)[0]
+        nxt = arr[ffs + 1]
+        real = (nxt != 0x00) & (nxt != 0xFF) & ((nxt < 0xD0) | (nxt > 0xD7))
+        hits = ffs[real]
+        if hits.size:
+            return offset + int(hits[0])
+    return offset + arr.size
 
 
 def parse_segments(data: bytes) -> List[Segment]:

@@ -7,9 +7,11 @@
 
 Times ``analyze`` (the native parse), ``native.scan_info``,
 ``native.pack_rows`` (the port's linear rows ``[G*1024, W]``; the JAX
-tool's ``pack_blocks tiled`` is TPU layout and has no counterpart) and a
-steady ``Decoder.prepare``, each in ms and GB/s over the scan bytes, with
-the counts they run over: segments, words per segment, rows. The JAX
+tool's ``pack_blocks tiled`` is TPU layout and has no counterpart), a
+steady ``Decoder.prepare`` and the Python parser's ``parse_segments``
+(which finds the scan's end with ``native.find_scan_end``), each in ms and
+GB/s over the scan bytes, with the counts they run over: segments, words
+per segment, rows. The JAX
 tool's step over the reference's own bench input (its ``benches/scan.dat``)
 is left out: that file is not in the repository. These are host times;
 the card (``--device cuda``, the default, where ``prepare`` puts the
@@ -56,6 +58,7 @@ def counts(data: bytes) -> dict:
 def run(argv: Optional[List[str]] = None) -> dict:
     from .. import native
     from ..metadata import analyze
+    from ..parser import parse_segments
     from ..pipeline import Decoder
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -81,6 +84,7 @@ def run(argv: Optional[List[str]] = None) -> dict:
         ("pack_rows (pooled)", lambda: native.pack_rows(
             img.source, n, w, g, offset=img.scan_offset, length=sz)),
         ("prepare (parse+pack, steady state)", lambda: dec.prepare(data)),
+        ("parse_segments (Python parser)", lambda: parse_segments(data)),
     ]:
         fn()
         dt = _timeit(fn, REPS)

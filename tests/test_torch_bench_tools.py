@@ -257,7 +257,8 @@ def test_bench_host_on_the_cpu(capsys):
     assert res["device"] is None
     assert set(res["ms"]) == {"analyze (native parse)", "scan_info",
                               "pack_rows (pooled)",
-                              "prepare (parse+pack, steady state)"}
+                              "prepare (parse+pack, steady state)",
+                              "parse_segments (Python parser)"}
 
 
 def test_bench_host_counts_are_the_jax_packages():

@@ -150,6 +150,87 @@ def test_the_two_native_libraries_are_two_files():
     assert N.load()._name == N.library_path()
 
 
+def _filler(n: int, seed: int = 0) -> bytes:
+    """n entropy-coded bytes with no FF among them."""
+    b = np.random.default_rng(seed).integers(0, 255, n, dtype=np.uint8)
+    return b.tobytes()
+
+
+SCAN_ENDS = {
+    # the scan's bytes after a 7-byte header; the AVX2 loop takes 32 bytes a
+    # step, so the interesting bytes also lie past the first 32 and astride
+    # a step's end
+    "RST markers": _filler(40) + b"\xFF\xD0" + _filler(30, 1) + b"\xFF\xD7"
+    + _filler(5, 2) + b"\xFF\xD9",
+    "stuffed FF 00": _filler(33) + b"\xFF\x00\xFF\x00" + _filler(40, 1)
+    + b"\xFF\xC4\x00",
+    "FF FF fill before a marker": _filler(45) + b"\xFF\xFF\xFF\xFF\xD9",
+    "a marker astride a 32-byte step": _filler(24) + b"\xFF\xDA",
+    "trailing lone FF": _filler(70) + b"\xFF",
+    "no terminating marker": _filler(70) + b"\xFF\x00\xFF\xD3"
+    + _filler(10, 1),
+    "empty scan": b"",
+}
+
+
+@needs_native
+@pytest.mark.parametrize("name", list(SCAN_ENDS))
+def test_find_scan_end_equals_the_jax_one(name):
+    """The port's native scan-end search, the JAX package's and the port
+    parser's numpy search agree at every start in the first 40 bytes and on
+    a bytearray."""
+    from compeg_tpu_torch import parser as PP
+
+    data = b"\xFF\xD8\xFF\xDA\x00\x08\x01" + SCAN_ENDS[name]
+    ends = set()
+    for offset in range(0, min(len(data), 40)):
+        end = N.find_scan_end(data, offset)
+        assert end == JN.find_scan_end(data, offset) == PP.scan_end(
+            data, offset), offset
+        ends.add(end)
+    assert N.find_scan_end(bytearray(data), 7) == JN.find_scan_end(data, 7)
+    if name in ("trailing lone FF", "no terminating marker", "empty scan"):
+        assert N.find_scan_end(data, 7) == len(data)
+    else:
+        assert data[N.find_scan_end(data, 7) + 1] not in (0x00, 0xFF)
+
+
+@needs_native
+def test_the_parser_calls_the_native_scan_end_search(monkeypatch, test_image):
+    """parse_segments finds each scan's end with native.find_scan_end when
+    the library is built (one call a scan), and the numpy search finds the
+    same segments."""
+    from compeg_tpu_torch import parser as PP
+
+    data = stream(test_image, "422", 2, 24, 40)
+    calls = []
+    find = N.find_scan_end
+
+    def counted(buf, offset=0):
+        calls.append(offset)
+        return find(buf, offset)
+
+    monkeypatch.setattr(N, "find_scan_end", counted)
+    dump = PP.dump_segments(data)
+    assert calls == [M.analyze(data).scan_offset]
+    monkeypatch.setattr(N, "available", lambda: False)
+    assert PP.dump_segments(data) == dump and len(calls) == 1
+
+
+def test_a_native_scan_end_error_is_raised(monkeypatch, test_image):
+    """An error in the native search reaches the caller: the parser does
+    not fall back to the numpy search behind it."""
+    from compeg_tpu_torch import parser as PP
+
+    def broken(buf, offset=0):
+        raise RuntimeError("native scan-end search failed")
+
+    monkeypatch.setattr(N, "available", lambda: True)
+    monkeypatch.setattr(N, "find_scan_end", broken)
+    with pytest.raises(RuntimeError, match="scan-end search failed"):
+        PP.parse_segments(stream(test_image, "422", 1, 16, 16))
+
+
 def test_python_and_native_prepare_agree(monkeypatch, test_image):
     data = stream(test_image, "420", 2, 40, 72)
     native_pf = Decoder(device="cpu").prepare(data)

@@ -25,6 +25,7 @@ from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
 from compeg_tpu_torch.ops import idct as D  # noqa: E402
 from compeg_tpu_torch.ops import relayout as R  # noqa: E402
+from compeg_tpu_torch.parallel import sharding as SH  # noqa: E402
 from compeg_tpu_torch.batch import BatchDecoder, StreamDecoder  # noqa: E402
 from compeg_tpu_torch.pipeline import Decoder  # noqa: E402
 from compeg_tpu_torch.tools import exp_relayout  # noqa: E402
@@ -311,6 +312,28 @@ def test_params_of_a_batch():
     assert (four.frames, four.frame_rows, four.nseg) == (4, 1024, 7)
 
 
+def test_params_of_a_banded_launch():
+    """A launch carries no gate unless it is banded (bands = 0: every
+    frame holds total_mcus); a gate sets the image's MCUs, the bands of a
+    frame in the launch and the first one's index, and refuses a launch
+    with no bands."""
+    one = _build.make_params(7, 3, 2, 13, (0, 0, 1, 2),
+                             samplings=((2, 1), (1, 1), (1, 1)))
+    assert (one.bands, one.band0, one.image_mcus) == (0, 0, 0)
+    gate = F.BandGate(image_mcus=40, bands=2, first=2)
+    p = _build.make_params(7, 3, 2, 14, (0, 0, 1, 2),
+                           samplings=((2, 1), (1, 1), (1, 1)), frames=6,
+                           frame_rows=8, gate=gate)
+    assert (p.image_mcus, p.bands, p.band0) == (40, 2, 2)
+    # bands of 14 MCUs of a 40-MCU image: 14, 14, 12, then none; a rank
+    # holding bands 2 and 3 of three frames
+    assert [F.BandGate(40, 4).mcus(14, f) for f in range(4)] == [14, 14, 12, 0]
+    assert [gate.mcus(14, f) for f in range(6)] == [12, 0] * 3
+    with pytest.raises(ValueError, match="band"):
+        _build.make_params(7, 3, 2, 14, (0,), samplings=((1, 1),),
+                           gate=F.BandGate(40, 0))
+
+
 def test_params_layout_of_420():
     p = _build.make_params(7, 3, 2, 13, (0, 0, 0, 0, 1, 2),
                            samplings=((2, 2), (1, 1), (1, 1)), width=40,
@@ -383,6 +406,55 @@ def test_batched_kernels_equal_the_single_frame_launches(
         for i, f in enumerate(frames):
             d = np.abs(rgb[i].astype(int) - golden.decode_rgb(f).astype(int))
             assert d.max() <= 1
+
+
+@pytest.mark.parametrize("mode", ["float", "exact", "planes"])
+def test_banded_kernels_gate_each_frame_like_their_twins(cuda, mode,
+                                                         test_image):
+    """Two frames of 56 x 48 4:4:4 at Ri = 5 in 3 bands (30, 12 and 0 MCUs
+    of the image) with random words in the row of every gated segment, in
+    one launch under the band gate: every live MCU row of every band frame
+    equals the plain twin given that frame's MCU count (K2 within 1)."""
+    from compeg_tpu_torch import analyze
+
+    data = encoder.encode(test_image(56, 48, "noise"), sampling="444",
+                          quality=90, restart_interval_mcus=5)
+    exact = mode != "float"
+    pf = Decoder(device=cuda, exact_idct=exact).prepare(data)
+    bf = SH.prepare_banded(analyze(data), 3)
+    rows, _ = SH.stack_banded([bf] * 2)
+    gated = bf.seg_mcus == 0
+    rows[:, gated] = np.random.default_rng(9).integers(
+        -2 ** 31, 2 ** 31, rows[:, gated].shape, dtype=np.int64)
+    flat = torch.from_numpy(rows.reshape(6, bf.nseg, -1)).to(cuda)
+    bg = SH.band_geometry(pf.geom, bf.band_rows)
+    gate = SH.band_gate(pf.geom, 3, 0)
+    args = (flat, bf.nseg, pf.tables, pf.op, bg)
+    if mode == "planes":
+        got = counted("planes", F.fused_decode_planes, *args, exact=True,
+                      gate=gate)
+    elif exact:
+        got = counted("fused_exact", F.fused_decode_rgba_exact, *args, gate)
+    else:
+        got = counted("fused", F.fused_decode_rgba, *args, gate)
+    counts = [gate.mcus(bg.total_mcus, f) for f in range(6)]
+    assert counts == [30, 12, 0] * 2
+    for f, m in enumerate(counts):
+        live = m // bg.width_mcus  # MCU rows of the band inside the image
+        one = (flat[f], bf.nseg, pf.tables, pf.op, bg)
+        if mode == "planes":
+            twin = F.fused_decode_planes_reference(*one, True, m)
+            for c, (_, v) in enumerate(bg.samplings):
+                n = live * 8 * v
+                assert torch.equal(got[c][f][:n], twin[c][:n]), (f, c)
+        elif exact:
+            twin = F.fused_decode_rgba_exact_reference(*one, m)
+            assert torch.equal(got[f][:live * 8], twin[:live * 8]), f
+        else:
+            twin = F.fused_decode_rgba_reference(*one, m)
+            d = np.abs(as_rgb(got[f][:live * 8]).astype(int)
+                       - as_rgb(twin[:live * 8]).astype(int))
+            assert d.size == 0 or d.max() <= 1, f
 
 
 def test_stream_on_the_card_yields_each_frame_in_order(cuda, test_image):

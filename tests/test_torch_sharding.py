@@ -9,7 +9,13 @@ cut (Ri not dividing the MCU-row width, a short final interval). The
 halo-aware fancy filter is held to the unsplit one with halos taken by hand.
 Two comparisons with the JAX package's decode_batch_sharded on the virtual
 CPU mesh of tests/conftest.py (interpret mode), one two-process gloo job
-through tools/dryrun_multiproc.py, and multihost's helpers."""
+through tools/dryrun_multiproc.py, and multihost's helpers.
+
+The band gate: each band's MCU count equals the JAX package's seg_mcus
+summed over the band on both of its layouts (segment by segment on the
+linear one), and so does every frame's count of a rank's launch; the plain
+twins read no bit of a gated segment, give its MCUs zero coefficients, and
+garbage there changes no kept pixel."""
 
 import os
 import subprocess
@@ -23,6 +29,8 @@ torch = pytest.importorskip("torch")
 from compeg_tpu import encoder  # noqa: E402
 import compeg_tpu_torch as T  # noqa: E402
 from compeg_tpu_torch.ops import color as C  # noqa: E402
+from compeg_tpu_torch.ops import entropy as E  # noqa: E402
+from compeg_tpu_torch.ops import fused as F  # noqa: E402
 from compeg_tpu_torch.parallel import multihost as MH  # noqa: E402
 from compeg_tpu_torch.parallel import sharding as SH  # noqa: E402
 
@@ -104,6 +112,122 @@ def test_band_rows_follow_the_jax_fallback(test_image):
             whole = dec._pack(img)[0].view(np.int32)
             assert np.array_equal(flat[:nseg], whole[:nseg])
             assert not flat[nseg:].any()
+
+
+GATE_CASES = {
+    # name: (h, w, sampling, ri, n_bands); the JAX layout follows from
+    # whether Ri divides the MCU-row width
+    "tiled 422 Ri 1": (32, 48, "422", 1, 2),
+    "tiled 422 Ri 1, an empty band": (24, 32, "422", 1, 4),
+    "tiled 420 Ri 2, 5 bands, an empty one": (64, 64, "420", 2, 5),
+    "linear 422 Ri 7, short last interval": (64, 160, "422", 7, 3),
+    "linear 444 Ri 5, 1 band": (56, 48, "444", 5, 1),
+    "linear 444 Ri 5, 3 bands, an empty one": (56, 48, "444", 5, 3),
+    "linear 420 Ri 3, 5 bands": (48, 80, "420", 3, 5),
+}
+
+
+@pytest.mark.parametrize("name", list(GATE_CASES))
+def test_band_mcus_equal_the_jax_seg_mcus(name, test_image):
+    """Every band's MCU count (band_mcus, BandedFrame.band_mcus) is the
+    JAX package's seg_mcus summed over the band, on its tiled and its
+    linear layout, empty bands included; on the linear layout the port's
+    per-segment view equals seg_mcus segment by segment. A rank's launch
+    gate gives each of its band frames its band's count, at every seq
+    coordinate of every mesh that divides the bands."""
+    from compeg_tpu import analyze as jax_analyze
+    from compeg_tpu.parallel import sharding as JSH
+
+    h, w, sampling, ri, n_bands = GATE_CASES[name]
+    data = encoder.encode(test_image(h, w, "noise"), sampling=sampling,
+                          quality=85, restart_interval_mcus=ri)
+    img = T.analyze(data)
+    jbf = JSH.prepare_banded(jax_analyze(data), n_bands)
+    assert (jbf.tiling is not None) == name.startswith("tiled")
+    want = jbf.seg_mcus.reshape(n_bands, -1)
+    bf = SH.prepare_banded(img, n_bands)
+    assert bf.band_rows == jbf.band_rows
+    assert np.array_equal(SH.band_mcus(img, n_bands), want.sum(1))
+    assert np.array_equal(bf.band_mcus, want.sum(1))
+    assert bf.band_mcus.sum() == img.total_mcus
+    if "empty" in name:
+        assert bf.band_mcus[-1] == 0
+    if "short" in name:
+        assert img.total_mcus % ri and bf.band_mcus[1] % ri
+    if jbf.tiling is None:
+        assert np.array_equal(bf.seg_mcus, want[:, :bf.nseg])
+        assert not want[:, bf.nseg:].any()
+    geom = T.Decoder(device="cpu").prepare(data).geom
+    band_total = SH.band_geometry(geom, bf.band_rows).total_mcus
+    for n_seq in (k for k in (1, 2, n_bands) if n_bands % k == 0):
+        nb_l = n_bands // n_seq
+        for s in range(n_seq):
+            gate = SH.band_gate(geom, nb_l, s)
+            got = [gate.mcus(band_total, f) for f in range(2 * nb_l)]
+            assert got == 2 * bf.band_mcus[s * nb_l:(s + 1) * nb_l].tolist()
+
+
+GATED_MODES = {"nearest": {}, "exact": {"exact_idct": True},
+               "fancy": {"fancy_upsampling": True}}
+
+
+@pytest.mark.parametrize("mode", list(GATED_MODES))
+def test_plain_twins_read_no_bits_of_a_gated_segment(mode, test_image,
+                                                      monkeypatch):
+    """56 x 48 4:4:4 at Ri = 5 in 3 bands of 30 MCUs: the second band
+    holds 12 (its third segment 2 of 5 MCUs), the third none. With random
+    words in the rows of every gated segment, the banded decode on the CPU
+    (the plain twins) decodes each band frame with its own MCU count, reads
+    symbols of its live segments only, leaves the gated MCUs' coefficients
+    zero, and gives the same pixels as zero rows there and as the unbanded
+    decode."""
+    knobs = GATED_MODES[mode]
+    data = encoder.encode(test_image(56, 48, "noise"), sampling="444",
+                          quality=85, restart_interval_mcus=5)
+    bf = SH.prepare_banded(T.analyze(data), 3)
+    assert bf.band_mcus.tolist() == [30, 12, 0]
+    assert bf.seg_mcus[1].tolist() == [5, 5, 2, 0, 0, 0]
+    rows, _ = SH.stack_banded([bf] * 2)
+    gated = bf.seg_mcus == 0
+    junk = rows.copy()
+    junk[:, gated] = np.random.default_rng(3).integers(
+        -2 ** 31, 2 ** 31, junk[:, gated].shape, dtype=np.int64)
+    assert (junk[:, gated] != 0).mean() > 0.99
+    pf = T.Decoder(device="cpu", **knobs).prepare(data)
+
+    read, frames = [], []
+    symbol, coefficients = E._symbol, F.entropy_decode_reference
+
+    def spy_symbol(flat, width, idx, *args, **kwargs):
+        read.append(idx)
+        return symbol(flat, width, idx, *args, **kwargs)
+
+    def spy_coefficients(rows, nseg, tables, ri, total_mcus, du_to_comp):
+        read.clear()
+        out = coefficients(rows, nseg, tables, ri, total_mcus, du_to_comp)
+        segs = torch.cat(read).unique().tolist() if read else []
+        frames.append((total_mcus, segs, out))
+        return out
+
+    monkeypatch.setattr(E, "_symbol", spy_symbol)
+    monkeypatch.setattr(F, "entropy_decode_reference", spy_coefficients)
+
+    def decode(r):
+        return SH.decode_batch_sharded(
+            torch.from_numpy(r), bf.nseg, pf.tables, pf.op,
+            mesh=SH.make_mesh(1, 1, "cpu"), geom=pf.geom,
+            band_rows=bf.band_rows, exact_idct="exact_idct" in knobs,
+            fancy_upsample="fancy_upsampling" in knobs)
+
+    got = decode(junk)
+    assert [f[0] for f in frames] == [30, 12, 0] * 2
+    for (_, segs, out), mc in zip(frames, np.tile(bf.seg_mcus, (2, 1))):
+        assert segs == np.nonzero(mc)[0].tolist()
+        for k, m in enumerate(mc):
+            assert not out[k, m:].any(), (k, m)
+    assert torch.equal(got, decode(rows))
+    want = T.Decoder(device="cpu", **knobs).decode(data)
+    assert all(np.array_equal(frame, want) for frame in rgb_of(got))
 
 
 @pytest.mark.parametrize("packer", ["native", "python"])
@@ -215,9 +339,10 @@ def test_stack_budget_and_refusals(test_image):
     data = encoder.encode(test_image(32, 32, "noise"), sampling="420",
                           restart_interval_mcus=1)
     bf = SH.prepare_banded(T.analyze(data), 4)
-    rows = SH.stack_banded([bf] * 3)
+    rows, mcus = SH.stack_banded([bf] * 3)
     assert rows.shape == (3, 4) + bf.rows.shape[1:]
     assert np.array_equal(rows[2], bf.rows)
+    assert mcus.shape == (3, 4) and np.array_equal(mcus[2], bf.band_mcus)
     with pytest.raises(T.CompegError, match="budget"):
         SH.decode_frames_sharded(
             [data] * 2, SH.make_mesh(1, 1, "cpu"), 2,
