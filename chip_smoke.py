@@ -14,8 +14,14 @@ which runs the entropy kernel K1 and torch ops) and checks that each went
 through its own kernel, checks that every kernel terminates on garbage
 entropy bits (the 4K frame's scan at eight seeds) and on a small stream
 with random scan bytes changed, and agrees with its plain version there,
-and times the kernels against their plain versions, the staged
-path's stages and the torch epilogue of the planes paths. Then the batch and the
+and times the kernels against their plain versions and the staged
+path's stages. The planes epilogue E (compeg_tpu_torch/csrc/epilogue.cu, the
+upsampling and colour pass after the planes kernel) is held to its plain
+twin byte for byte, nearest and fancy, over the planes kernel's integer and
+float planes of every small stream and of the 4K frame, over planes that
+start off a word, over a batch of frames that differ and over band frames
+with halo rows and a content edge, and each path that ends in it must
+launch it (one launch a batch). Then the batch and the
 stream: small batches of frames that differ, and 64 frames of 3840x2160
 4:2:2 (the benchmark frame with its restart segments rotated, so every frame
 is another picture) through BatchDecoder on K2, K2x and K3, one launch per
@@ -93,6 +99,7 @@ PLAIN_REPS = 5  # the plain twins take 50-90 ms a call at 4K
 SCALES = (1, 2, 4)
 SOURCE = "compeg_tpu_torch/csrc/decode.cu"
 RELAYOUT_SOURCE = "compeg_tpu_torch/csrc/relayout.cu"
+EPILOGUE_SOURCE = "compeg_tpu_torch/csrc/epilogue.cu"
 BATCH = 64  # frames of the 4K batch and stream
 GARBAGE_SEEDS = range(5, 13)  # frames of random entropy bits (phase e)
 FUZZ = 40  # scan-byte mutations of a small stream (phase e)
@@ -231,13 +238,65 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, dict(_build.LAUNCHES)
 
-    def only(counts, key, name):
-        """The path launched kernel ``key`` and no other fused kernel."""
-        others = {k: v for k, v in counts.items() if k != key and v}
+    def only(counts, key, name, also=()):
+        """The path launched kernel ``key``, one launch of each kernel of
+        ``also`` (the planes epilogue after K3 or K1), and no other."""
+        others = {k: v for k, v in counts.items()
+                  if k != key and k not in also and v}
         log(f"(d) {name} launches: {counts}")
-        require(counts[key] >= 1 and not others,
-                f"{name} did not run on its own kernel ({key}): {counts}")
+        require(counts[key] >= 1 and all(counts[k] == 1 for k in also)
+                and not others,
+                f"{name} did not run on its own kernels ({key}, {also}): "
+                f"{counts}")
         return counts[key]
+
+    e_checked = []  # the cases where E equalled its plain twin
+    e_err = [0]
+
+    def e_vs_plain(planes, samplings, width, height, rgb, tag, halos=None,
+                   fancies=(False, True)):
+        """E nearest and fancy over ``planes`` (u8 on the card) against its
+        plain twin on the same planes: byte for byte. E's outputs."""
+        outs = []
+        for fancy in fancies:
+            args = (planes, samplings, width, height, fancy, rgb, halos)
+            got = C.finalize_planes(*args)
+            want = C.finalize_planes_reference(*args)
+            err = int((got.view(torch.uint8).int()
+                       - want.view(torch.uint8).int()).abs().max())
+            e_err[0] = max(e_err[0], err)
+            require(err == 0 and got.shape == want.shape,
+                    f"{tag}: E ({'fancy' if fancy else 'nearest'}) is {err} "
+                    "from its plain twin")
+            e_checked.append(f"{tag} {'fancy' if fancy else 'nearest'}")
+            outs.append(got)
+        return outs
+
+    def e_spy(fn):
+        """fn() with every call of E kept: (result, [(args, kwargs, out)])."""
+        calls = []
+        real = C.finalize_planes
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            calls.append((args, kwargs, out))
+            return out
+
+        C.finalize_planes = spy
+        try:
+            return fn(), calls
+        finally:
+            C.finalize_planes = real
+
+    def e_calls_vs_plain(calls, tag):
+        """Each kept call of E against its plain twin on the same planes and
+        halos: byte for byte."""
+        for args, kwargs, out in calls:
+            want = C.finalize_planes_reference(*args, **kwargs)
+            require(torch.equal(out, want),
+                    f"{tag}: E differs from its plain twin")
+            e_checked.append(tag)
+        return len(calls)
 
     def kernels_and_plain(data, retained=64):
         """K1 (natural order, host), K1's max |diff| from the plain K1, K2
@@ -283,11 +342,13 @@ def main() -> int:
         return out
 
     def modes(pf, rows):
-        """K2x, K3 (integer) and the fancy epilogue of one exact frame, each
-        with its plain twin: (k2x, plain k2x, k3 planes, plain planes, fancy
-        over K3, fancy over the plain planes). K3 also writes into planes
-        off a 16-byte boundary, with the integer and the float IDCT, and
-        must give the same planes; K3 float within 1 of its plain twin."""
+        """K2x, K3 (integer) and E fancy of one exact frame, each with its
+        plain twin: (k2x, plain k2x, k3 planes, plain planes, E fancy over
+        K3, E fancy over the plain planes). K3 also writes into planes off a
+        16-byte boundary, with the integer and the float IDCT, and must give
+        the same planes; K3 float within 1 of its plain twin. E nearest and
+        fancy equal their plain twin over K3's integer and float planes and
+        over the integer planes 3 bytes off a boundary."""
         g = pf.geom
         lq_float = D.idct_operators(D.qz_by_slot_array(pf.image),
                                     device=rows.device)
@@ -307,6 +368,10 @@ def main() -> int:
         for off in (0, 8, 3):
             out = offset_planes(k3, off)
             got = F.fused_decode_planes(*args, exact=True, out=out)
+            if off == 3:  # E's byte-wise loads
+                e_vs_plain(got, g.samplings, g.width, g.height, g.rgb,
+                           f"{g.height}x{g.width} ri={g.ri}, K3 integer "
+                           "planes 3 bytes off a 16-byte boundary")
             gotf = F.fused_decode_planes(*fargs, out=offset_planes(k3, off))
             require(all(torch.equal(p, q) for p, q in zip(got, k3))
                     and all(torch.equal(p, q) for p, q in zip(gotf, k3f)),
@@ -315,9 +380,12 @@ def main() -> int:
             for p, (h, _) in zip(out, g.samplings):
                 plane_rasters[F.plane_store_route(p.data_ptr(), h)].add(
                     f"{g.height}x{g.width} ri={g.ri}")
-        fancy = [C.finalize_planes(p, g.samplings, g.width, g.height,
-                                   fancy=True, rgb=g.rgb)
-                 for p in (k3, k3_plain)]
+        tag = f"{g.height}x{g.width} ri={g.ri}"
+        e_vs_plain(k3f, g.samplings, g.width, g.height, g.rgb,
+                   f"{tag}, K3 float planes")
+        fancy = [e_vs_plain(p, g.samplings, g.width, g.height, g.rgb,
+                            f"{tag}, {name} planes")[1]
+                 for p, name in ((k3, "K3 integer"), (k3_plain, "plain K3"))]
         return (k2x, k2x_plain, k3, k3_plain, *fancy)
 
     # ---- (c) small streams ---------------------------------------------------
@@ -493,8 +561,9 @@ def main() -> int:
     require(k2x_err == 0 and k3_err == 0 and torch.equal(fancy, fancy_plain),
             f"4K: K2x ({k2x_err}) or K3 ({k3_err}) or the fancy epilogue "
             "differs from its plain twin")
-    log("(d) 4K: K2x == plain K2x, K3 (integer) == plain K3, fancy over K3 "
-        "== fancy over the plain K3, on every pixel")
+    log("(d) 4K: K2x == plain K2x, K3 (integer) == plain K3, E nearest and "
+        "fancy over K3's integer and float planes == its plain twin, on every "
+        "pixel")
 
     exact_dec = Decoder(exact_idct=True)
     got, counts = drive(lambda: exact_dec.decode(data4k))
@@ -516,7 +585,9 @@ def main() -> int:
     fancy_dec = Decoder(fancy_upsampling=True, exact_idct=True)
     got, counts = drive(lambda: fancy_dec.decode(data4k))
     launches["planes"] = only(counts, "planes",
-                              "Decoder(fancy_upsampling, exact_idct).decode")
+                              "Decoder(fancy_upsampling, exact_idct).decode",
+                              also=("epilogue",))
+    launches["epilogue"] = counts["epilogue"]
     require(testdata.digest(got) == str(vec["bench4k_fancy_sha256"]),
             "4K: the fancy + exact decode is not the stored digest")
     log("(d) fancy + exact decode(bench4k) equals the JAX colour functions "
@@ -524,7 +595,9 @@ def main() -> int:
 
     pe_dec = Decoder(planes_epilogue=True)
     got, counts = drive(lambda: pe_dec.decode(data4k))
-    only(counts, "planes", "Decoder(planes_epilogue=True).decode")
+    only(counts, "planes", "Decoder(planes_epilogue=True).decode",
+         also=("epilogue",))
+    launches["epilogue"] += counts["epilogue"]
     require(np.array_equal(got, main_rgb),
             "4K: planes_epilogue=True differs from the composite")
     log("(d) Decoder(planes_epilogue=True).decode(bench4k) == Decoder().decode")
@@ -557,14 +630,17 @@ def main() -> int:
     staged_x = Decoder(fused=False, exact_idct=True)
     got, counts = drive(lambda: staged_x.decode(data4k))
     launches["entropy"] = only(counts, "entropy",
-                               "Decoder(fused=False, exact_idct=True).decode")
+                               "Decoder(fused=False, exact_idct=True).decode",
+                               also=("epilogue",))
+    launches["epilogue"] += counts["epilogue"]
     require(launches["entropy"] == 1, f"the staged decode launched K1 "
             f"{launches['entropy']} times")
     require(testdata.digest(got) == str(vec["bench4k_rgbi_sha256"]),
             "4K: the staged exact decode is not golden's integer RGB (sha256)")
     staged_dec = Decoder(fused=False)
     got, counts = drive(lambda: staged_dec.decode(data4k))
-    only(counts, "entropy", "Decoder(fused=False).decode")
+    only(counts, "entropy", "Decoder(fused=False).decode", also=("epilogue",))
+    launches["epilogue"] += counts["epilogue"]
     st4k = {"staged decode() vs golden rows": pixel_stats(got[rows],
                                                           golden_rows),
             "staged decode() vs decode()": pixel_stats(got, main_rgb)}
@@ -575,7 +651,8 @@ def main() -> int:
     staged_err = max(staged_err, st4k["staged decode() vs golden rows"][0])
     log("(d) Decoder(fused=False, exact_idct=True).decode(bench4k) "
         "bit-identical to golden.decode_rgb(idct='int') (sha256): one launch "
-        "of K1, no fused kernel; the float staged decode inside the envelope")
+        "of K1 and one of E, no fused kernel; the float staged decode inside "
+        "the envelope")
 
     # ---- (e) garbage bits and mutated scans ------------------------------
     # Every kernel must return on any bits (a thread that never ends hangs the
@@ -699,6 +776,10 @@ def main() -> int:
     for k in SCALES:
         ms[f"K2s k={k}"] = cuda_ms(
             lambda k=k: F.fused_decode_scaled(*base, lq[k], g, k))
+    # E over K3's integer 4K planes, nearest and fancy.
+    for name, fancy in (("E nearest", False), ("E fancy", True)):
+        ms[name] = cuda_ms(lambda fancy=fancy: C.finalize_planes(
+            k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb))
     plain = {
         "K2": cuda_ms(lambda: F.fused_decode_rgba_reference(*base, pf.op, g),
                       reps=PLAIN_REPS, warmup=1, burst=1),
@@ -716,15 +797,18 @@ def main() -> int:
         plain[f"K2s k={k}"] = cuda_ms(
             lambda k=k: F.fused_decode_scaled_reference(*base, lq[k], g, k),
             reps=PLAIN_REPS, warmup=1, burst=1)
+    for name, fancy in (("E nearest", False), ("E fancy", True)):
+        plain[name] = cuda_ms(lambda fancy=fancy: C.finalize_planes_reference(
+            k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb),
+            reps=PLAIN_REPS, warmup=1, burst=1)
     for name in ms:
         log(f"(f) {name} at 4K: {ms[name]:.4f} ms, plain twin "
             f"{plain[name]:.4f} ms (medians of {REPS} CUDA-event timings "
             f"of {BURST} launches each, and of {PLAIN_REPS} single calls) on "
             f"{card}")
-    # The staged path's stages after K1, and the torch epilogue of K3's
-    # paths (ops/color.finalize_planes over K3's planes, nearest and fancy):
-    # CUDA events around one call of each, which is several torch kernels
-    # and the host's gaps between them.
+    # The staged path's stages after K1 and before E: CUDA events around
+    # one call of each, which is several torch kernels and the host's gaps
+    # between them.
     coeffs4k = E.entropy_decode(*base, g.ri, g.total_mcus, g.du_to_comp)
     pix4k = D.idct_pixels(coeffs4k, pf.op)
     stage_ms = {
@@ -736,23 +820,13 @@ def main() -> int:
         "component_planes": cuda_ms(
             lambda: C.component_planes(pix4k, g), burst=1),
     }
-    epilogue_ms = {
-        name: cuda_ms(lambda fancy=fancy: C.finalize_planes(
-            k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb),
-            burst=1)
-        for name, fancy in (("nearest", False), ("fancy", True))}
     rgba4k = C.finalize_planes(k3, g.samplings, g.width, g.height, rgb=g.rgb)
     stage_ms["rgba_to_rgb"] = cuda_ms(lambda: F.rgba_to_rgb(rgba4k), burst=1)
     del coeffs4k, pix4k, rgba4k
     log(f"(f) the staged path after K1 ({ms['K1']:.4f} ms) at 4K: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in stage_ms.items())
-        + f", finalize_planes as below (medians of {REPS} single calls, "
-        f"CUDA events; the integer IDCT {PLAIN_REPS}) on {card}")
-    log(f"(f) the torch epilogue of K3's paths at 4K, finalize_planes over "
-        f"K3's planes: nearest {epilogue_ms['nearest']:.4f} ms, fancy "
-        f"{epilogue_ms['fancy']:.4f} ms beside K3 integer "
-        f"{ms['K3 int']:.4f} ms, K3 float {ms['K3 float']:.4f} ms (medians "
-        f"of {REPS} single calls, CUDA events) on {card}")
+        + f", E nearest {ms['E nearest']:.4f} ms (medians of {REPS} single "
+        f"calls, CUDA events; the integer IDCT {PLAIN_REPS}) on {card}")
     prep_ms = wall_ms(lambda: dec.prepare(data4k))
     h2d_ms = wall_ms(lambda: dec.upload(pf))
     out4k = F.fused_decode_rgba(*base, pf.op, g)
@@ -781,43 +855,61 @@ def main() -> int:
     # Segment counts that are no multiple of the kernels' 32 segments per
     # block, short last intervals, 4:2:0 under the fancy filter: every frame
     # of a batch against golden's answer for that frame, one launch a batch.
+    # (mode, its kernels: one launch of each a batch, the golden answer)
     modes_b = {
-        "K2": ({}, "fused", "rgb"),
-        "K2x": ({"exact_idct": True}, "fused_exact", "rgbi"),
-        "K3": ({"exact_idct": True, "fancy_upsampling": True}, "planes",
-               "fancy"),
+        "K2": ({}, ("fused",), "rgb"),
+        "K2x": ({"exact_idct": True}, ("fused_exact",), "rgbi"),
+        "K3": ({"exact_idct": True, "fancy_upsampling": True},
+               ("planes", "epilogue"), "fancy"),
     }
+
+    def one_launch_each(counts, keys):
+        return (all(counts[k] == 1 for k in keys)
+                and sum(counts.values()) == len(keys))
+
     nframes = sum(1 for k in vec if k.startswith("batch0_jpeg_"))
     batch_err = {name: 0 for name in modes_b}
     for c, label in enumerate(vec["batch_labels"]):
         frames = [vec[f"batch{c}_jpeg_{f}"].tobytes() for f in range(nframes)]
-        for name, (knobs, key, answer) in modes_b.items():
+        for name, (knobs, keys, answer) in modes_b.items():
             bdec = BatchDecoder(**knobs)
             got, counts = drive(lambda: bdec.decode(frames))
-            require(counts[key] == 1 and sum(counts.values()) == 1,
-                    f"batch {label}: {name} took {counts}, not one launch")
+            require(one_launch_each(counts, keys),
+                    f"batch {label}: {name} took {counts}, not one launch "
+                    f"of each of {keys}")
             for f in range(nframes):
                 err = pixel_stats(got[f], vec[f"batch{c}_{answer}_{f}"])[0]
                 batch_err[name] = max(batch_err[name], err)
                 require(err <= (1 if name == "K2" else 0),
                         f"batch {label}: {name} frame {f} is {err} from "
                         "golden's answer")
+        # E on the batch's K3 planes, the frames in one launch.
+        bdec = BatchDecoder(**modes_b["K3"][0])
+        bpfs = bdec.prepare_batch(frames)
+        bg = bpfs[0].geom
+        e_vs_plain(F.fused_decode_planes(bdec.upload(), bpfs[0].nseg,
+                                         bpfs[0].tables, bpfs[0].op, bg,
+                                         exact=True),
+                   bg.samplings, bg.width, bg.height, bg.rgb,
+                   f"batch of {nframes}, {label}")
         log(f"(g) batch of {nframes}, {label}: K2 within 1 of golden, K2x == "
             f"golden integer RGB, fancy over K3 == the JAX colour functions, "
-            f"frame by frame, one launch each")
+            f"frame by frame, one launch of each kernel; E nearest and fancy "
+            f"over the batch's planes == its plain twin")
 
     # The staged batch: every frame its own single-frame staged decode and
     # golden's integer RGB, a K1 launch per frame and no fused kernel.
-    staged_batch_launches = {"entropy": 0}
+    staged_batch_launches = {"entropy": 0, "epilogue": 0}
     for c, label in enumerate(vec["batch_labels"]):
         frames = [vec[f"batch{c}_jpeg_{f}"].tobytes() for f in range(nframes)]
         sbdec = BatchDecoder(fused=False, exact_idct=True)
         got, counts = drive(lambda: sbdec.decode(frames))
-        require(counts["entropy"] == nframes
-                and sum(counts.values()) == nframes,
-                f"staged batch {label}: took {counts}, not a K1 launch a "
-                "frame")
-        staged_batch_launches["entropy"] += counts["entropy"]
+        require(counts["entropy"] == counts["epilogue"] == nframes
+                and sum(counts.values()) == 2 * nframes,
+                f"staged batch {label}: took {counts}, not a K1 and an E "
+                "launch a frame")
+        for k in staged_batch_launches:
+            staged_batch_launches[k] += counts[k]
         single = Decoder(fused=False, exact_idct=True)
         for f in range(nframes):
             require(np.array_equal(got[f], single.decode(frames[f]))
@@ -827,7 +919,7 @@ def main() -> int:
     log(f"(g) BatchDecoder(fused=False, exact_idct=True) on "
         f"{len(vec['batch_labels'])} batches of {nframes}: every frame == "
         f"its single-frame staged decode == golden integer RGB, "
-        f"{nframes} launches of K1 a batch")
+        f"{nframes} launches of K1 and of E a batch")
 
     # ---- (h) 64 frames of 4K: BatchDecoder and StreamDecoder ------------------
     # Frame i is the benchmark frame with its restart segments rotated by i
@@ -843,14 +935,16 @@ def main() -> int:
                "K3": fancy_dec.decode(data4k)}
     batch_launches = {}
     batch_wall = {}
-    for name, (knobs, key, answer) in modes_b.items():
+    for name, (knobs, keys, answer) in modes_b.items():
         bdec = BatchDecoder(**knobs)
         t0 = time.perf_counter()
         got, counts = drive(lambda: bdec.decode(frames4k))
         batch_wall[name] = (time.perf_counter() - t0) * 1e3 / BATCH
-        require(counts[key] == 1 and sum(counts.values()) == 1,
-                f"4K batch: {name} took {counts}, not one launch")
-        batch_launches[key] = counts[key]
+        require(one_launch_each(counts, keys),
+                f"4K batch: {name} took {counts}, not one launch of each of "
+                f"{keys}")
+        for k in keys:
+            batch_launches[k] = counts[k]
         require(got.shape == (BATCH, 2160, 3840, 3), f"4K batch: {got.shape}")
         for i in range(BATCH):
             require(np.array_equal(got[i], np.roll(singles[name], -8 * i, 0)),
@@ -873,7 +967,7 @@ def main() -> int:
             log(f"(h) {name} batch frames {samples} bit-identical to golden "
                 f"rolled (sha256): {same}")
         log(f"(h) BatchDecoder({knobs}).decode of {BATCH} 4K frames: one "
-            f"launch of {key}; every frame == the single-frame decode rolled "
+            f"launch of {keys}; every frame == the single-frame decode rolled "
             f"by its 8 * i rows" + ("; every frame == golden's integer RGB "
                                     "rolled (sha256)" if name == "K2x" else ""))
         del got
@@ -921,6 +1015,13 @@ def main() -> int:
             rows_b, pf.nseg, pf.tables, qz, g, exact=True), reps=5,
             burst=1) / BATCH,
     }
+    planes_b = F.fused_decode_planes(rows_b, pf.nseg, pf.tables, qz, g,
+                                     exact=True)
+    for name, fancy in (("E nearest", False), ("E fancy", True)):
+        batch_ms[name] = cuda_ms(lambda fancy=fancy: C.finalize_planes(
+            planes_b, g.samplings, g.width, g.height, fancy=fancy,
+            rgb=g.rgb), reps=5, burst=1) / BATCH
+    del planes_b
     up_ms = wall_ms(lambda: bd_t._staging.tensor.to("cuda",
                                                     non_blocking=True),
                     reps=5) / BATCH
@@ -1356,6 +1457,8 @@ def main() -> int:
         real = _build.launch
 
         def spy(name, *tensors, params, lib=None):
+            if not isinstance(params, _build.DecodeParams):  # E's launch
+                return real(name, *tensors, params=params, lib=lib)
             gate = F.BandGate(params.image_mcus, params.bands, params.band0)
             seen.append((name, [gate.mcus(params.total_mcus, f)
                                 if params.bands else params.total_mcus
@@ -1429,12 +1532,13 @@ def main() -> int:
                 f"the mesh is not a CUDA DeviceMesh: {mesh}")
         frames8 = frames4k[:8]
         band_modes = {
-            "nearest (K2)": ({}, "fused"),
-            "exact_idct (K2x)": ({"exact_idct": True}, "fused_exact"),
-            "fancy + exact (K3 integer, epilogue)": (
-                {"fancy_upsampling": True, "exact_idct": True}, "planes"),
-            "fancy float (K3 float, epilogue)": (
-                {"fancy_upsampling": True}, "planes"),
+            "nearest (K2)": ({}, ("fused",)),
+            "exact_idct (K2x)": ({"exact_idct": True}, ("fused_exact",)),
+            "fancy + exact (K3 integer, E)": (
+                {"fancy_upsampling": True, "exact_idct": True},
+                ("planes", "epilogue")),
+            "fancy float (K3 float, E)": (
+                {"fancy_upsampling": True}, ("planes", "epilogue")),
         }
         bands = [SH.prepare_banded(analyze(f), 4) for f in frames8]
         brows_np, bmcus = SH.stack_banded(bands)
@@ -1442,20 +1546,25 @@ def main() -> int:
         bgeom = pf.geom
         require(bmcus.tolist() == [[16320, 16320, 16320, 15840]] * 8,
                 f"4K in 4 bands: band_mcus {bmcus.tolist()}")
-        for name, (knobs, key) in band_modes.items():
+        for name, (knobs, keys) in band_modes.items():
             bd = BatchDecoder(**knobs)
             sd = BatchDecoder(**knobs)  # the banded decode's own staging
             want = bd.decode(frames8)
-            (out, gates), lcounts = drive(lambda: launch_gates(
-                lambda: SH.decode_frames_sharded(frames8, mesh, 4,
-                                                 decoder=sd)))
-            require(lcounts[key] == 1 and sum(lcounts.values()) == 1,
-                    f"banded {name}: launches {lcounts}, not one of {key}")
+            ((out, gates), e_calls), lcounts = drive(lambda: e_spy(
+                lambda: launch_gates(lambda: SH.decode_frames_sharded(
+                    frames8, mesh, 4, decoder=sd))))
+            require(one_launch_each(lcounts, keys),
+                    f"banded {name}: launches {lcounts}, not one of each of "
+                    f"{keys}")
             require(len(gates) == 1
                     and gates[0][1] == bmcus.reshape(-1).tolist(),
                     f"banded {name}: the launch's per-frame MCU counts "
                     f"{gates} are not the BandedFrames' band_mcus")
-            banded_launches[key] = banded_launches.get(key, 0) + lcounts[key]
+            for k in keys:
+                banded_launches[k] = banded_launches.get(k, 0) + lcounts[k]
+            e_calls_vs_plain(e_calls, f"banded {name}, 8 4K frames in 4 "
+                             "bands, one launch")
+            del e_calls
             got = F.rgba_to_rgb(SH.gather_global(out, mesh)).cpu().numpy()
             require(np.array_equal(got, want),
                     f"banded {name}: differs from BatchDecoder")
@@ -1481,7 +1590,7 @@ def main() -> int:
             del rows_b
             log(f"(l) banded {name}: 8 4K frames in 4 bands of "
                 f"{bands[0].band_rows} MCU rows == BatchDecoder byte for "
-                f"byte, one launch of {key} gated to band_mcus "
+                f"byte, one launch of each of {keys} gated to band_mcus "
                 f"{bmcus[0].tolist()}; per frame: banded "
                 f"{banded_ms[name][0]:.4f} ms on the card (rows resident; "
                 f"BatchDecoder's decode_rows {banded_ms[name][1]:.4f} ms), "
@@ -1509,23 +1618,53 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s: {len(data7)} bytes, "
             f"{img7.total_restart_intervals} segments, band rows "
             f"{SH.band_rows_for(img7, 4)}")
-        for name, knobs, key in (
-                ("nearest", {}, "fused"),
-                ("exact_idct", {"exact_idct": True}, "fused_exact"),
+        for name, knobs, keys in (
+                ("nearest", {}, ("fused",)),
+                ("exact_idct", {"exact_idct": True}, ("fused_exact",)),
                 ("fancy + exact", {"fancy_upsampling": True,
-                                   "exact_idct": True}, "planes")):
+                                   "exact_idct": True},
+                 ("planes", "epilogue"))):
             want = Decoder(**knobs).decode(data7)
             out, lcounts = drive(lambda: SH.decode_frames_sharded(
                 [data7] * 2, mesh, 4, decoder=BatchDecoder(**knobs)))
-            require(lcounts[key] == 1 and sum(lcounts.values()) == 1,
+            require(one_launch_each(lcounts, keys),
                     f"banded Ri = 7 {name}: launches {lcounts}")
-            banded_launches[key] = banded_launches.get(key, 0) + lcounts[key]
+            for k in keys:
+                banded_launches[k] = banded_launches.get(k, 0) + lcounts[k]
             got = F.rgba_to_rgb(out).cpu().numpy()
             require(got.shape == (2, 1080, 1920, 3)
                     and all(np.array_equal(g, want) for g in got),
                     f"banded Ri = 7 {name}: differs from Decoder")
             log(f"(l) banded Ri = 7 {name}: 2 frames in 4 bands == "
-                f"Decoder().decode byte for byte, one launch of {key}")
+                f"Decoder().decode byte for byte, one launch of each of "
+                f"{keys}")
+        # 4:2:0 under the fancy filter: the batch of four 40 x 136 frames at
+        # Ri = 5 in 4 bands, whose content ends inside the first band (the
+        # chroma's content edge, valid, in E's launch).
+        c420 = list(vec["batch_labels"]).index("420 ri=5 40x136")
+        frames420 = [vec[f"batch{c420}_jpeg_{f}"].tobytes()
+                     for f in range(nframes)]
+        knobs = {"fancy_upsampling": True, "exact_idct": True}
+        want = BatchDecoder(**knobs).decode(frames420)
+        (out, e_calls), lcounts = drive(lambda: e_spy(
+            lambda: SH.decode_frames_sharded(frames420, mesh, 4,
+                                             decoder=BatchDecoder(**knobs))))
+        require(one_launch_each(lcounts, ("planes", "epilogue")),
+                f"banded 4:2:0: launches {lcounts}")
+        for k in ("planes", "epilogue"):
+            banded_launches[k] += lcounts[k]
+        valids = [h[2] for h in e_calls[0][1]["halos"] if h is not None]
+        require(valids and all(v is not None for v in valids),
+                f"banded 4:2:0: E was given no content edge: {valids}")
+        e_calls_vs_plain(e_calls, "banded 4:2:0 fancy, 4 frames in 4 bands, "
+                         f"valid {valids}")
+        got = F.rgba_to_rgb(out).cpu().numpy()
+        require(np.array_equal(got, want),
+                "banded 4:2:0 fancy: differs from BatchDecoder")
+        log(f"(l) banded 4:2:0 fancy + exact, {nframes} frames of 40x136 at "
+            f"Ri = 5 in 4 bands: == BatchDecoder byte for byte, one launch of "
+            f"K3 and one of E (content edge valid = {valids}), E == its "
+            f"plain twin")
         bands7 = [SH.prepare_banded(img7, 4)] * 2
         require(bands7[0].band_mcus.tolist() == [4200, 4200, 4200, 3600]
                 and bands7[0].seg_mcus[3, 514] == 2,
@@ -1559,7 +1698,7 @@ def main() -> int:
     def tools_quick():
         res = {"bench": tool_line(bench_tool, ["--frames", "30", "--rounds",
                                                "3"])}
-        for flag in ([], ["--exact"]):
+        for flag in ([], ["--exact"], ["--fancy"]):
             res["trace_ops" + "".join(flag)] = tool_line(trace_ops, flag)
         res["bench_stream"] = tool_line(bench_stream,
                                    ["--device", "--frames", "16"])
@@ -1593,11 +1732,19 @@ def main() -> int:
     require(0.8 * ms["K2"] <= b["trace_ms"] <= 1.5 * ms["K2"],
             f"tools.bench: trace_ms {b['trace_ms']} outside [0.8, 1.5] x K2's "
             f"{ms['K2']} ms")
-    for key in ("trace_ops", "trace_ops--exact"):
+    for key in ("trace_ops", "trace_ops--exact", "trace_ops--fancy"):
         t = res_m[key]
         require(0 < t["trace_ms"] <= t["trace_event_ms"],
                 f"tools.{key}: device total {t['trace_ms']}, event span "
                 f"{t['trace_event_ms']}")
+    fancy_trace = res_m["trace_ops--fancy"]
+    fancy_kernels = sum(n for cat, n in fancy_trace["counted"].items()
+                        if cat.lower() == "kernel") / fancy_trace["frames"]
+    log(f"(m) trace_ops --fancy: device total {fancy_trace['trace_ms']:.4f} "
+        f"ms a frame in {fancy_kernels:g} kernels a frame (K3 and E), "
+        f"counted {fancy_trace['counted']}; rows "
+        f"{[(round(t, 4), n, name[:48]) for t, n, name in fancy_trace['rows']]}"
+        f" on {card}")
     idle = res_m["bench_stream"]["stream"]["idle_share"]
     require(0 <= idle <= 1, f"tools.bench_stream: idle share {idle}")
     require(res_m["trace_sharded"]["equal"],
@@ -1640,6 +1787,11 @@ def main() -> int:
         "K3 int": bound(in_bytes + qz.numel() * 4 + plane_bytes, 768 * n_du),
         "K3 float": bound(in_bytes + pf.op.numel() * 4 + plane_bytes,
                           2 * 64 * nnz),
+        # E: the planes read once and the raster written once; the colour
+        # conversion, and with the triangle filter about six operations per
+        # chroma sample of the output grid.
+        "E nearest": bound(plane_bytes + px * 4, colour_ops),
+        "E fancy": bound(plane_bytes + px * 4, colour_ops + 12 * px),
     }
     for k in SCALES:
         zlen = {1: 1, 2: 5, 4: 25}[k]
@@ -1691,8 +1843,20 @@ def main() -> int:
                   max(k3_err, batch_err["K3"]), "K3 int",
                   batched_ms_per_frame=batch_ms["K3 int"],
                   float_ms=ms["K3 float"], float_plain_ms=plain["K3 float"],
-                  float_bound_ms=bounds["K3 float"]["bound_ms"],
-                  epilogue_ms=epilogue_ms),
+                  float_bound_ms=bounds["K3 float"]["bound_ms"]),
+            entry("planes_epilogue_kernel (E)",
+                  "compeg_tpu/ops/fused.py:890", ("epilogue",), e_err[0],
+                  "E fancy", source=EPILOGUE_SOURCE,
+                  replaces_what="finalize_planes, the XLA output fusion of "
+                  "decode_frame_fused_planes (compeg_tpu/pipeline.py:153); "
+                  "no pl.pallas_call",
+                  nearest_ms=ms["E nearest"],
+                  nearest_plain_ms=plain["E nearest"],
+                  nearest_bound_ms=bounds["E nearest"]["bound_ms"],
+                  batched_ms_per_frame={k: batch_ms[f"E {k}"]
+                                        for k in ("nearest", "fancy")},
+                  trace_ops_fancy_kernels_per_frame=fancy_kernels,
+                  cases=len(e_checked)),
             entry("fused_decode_kernel<kIdctScaled, kOutRgba> (K2s)",
                   "compeg_tpu/ops/fused.py:419", ("scaled",), scaled_err,
                   "K2s k=1", ms_by_k={k: ms[f"K2s k={k}"] for k in SCALES},

@@ -164,9 +164,9 @@ class BatchDecoder:
     launch per batch.
 
     The knobs are the JAX class's, plus ``device``: ``exact_idct`` takes
-    kernel K2x, ``fancy_upsampling`` kernel K3 and the per-frame epilogue of
-    ``ops/color.py`` (each frame's planes are a slice of the batch's, so the
-    vertical filter never reaches a neighbouring frame), the default K2.
+    kernel K2x, ``fancy_upsampling`` kernel K3 and one launch of the planes
+    epilogue E (``ops/color.finalize_planes``, whose vertical filter never
+    reaches a neighbouring frame), the default K2.
     ``fused=False`` takes the staged tier, frame by frame (K1 and torch ops,
     ``[B, H, W, 3]`` u8 on the device), with ``exact_idct`` and
     ``fancy_upsampling`` as the single-frame Decoder applies them. The JAX

@@ -20,9 +20,9 @@
 //   K3  <kIdct*,      kOutPlanes>  fused_decode_planes (fused.py:580, phase 3
 //       :328-365), float or integer IDCT: one u8 plane per component at its
 //       own resolution, MCU-padded [height_mcus*8*v, width_mcus*8*h]; the
-//       chroma upsampling and colour conversion run after it as torch ops
-//       (ops/color.py), because the vertical triangle filter spans MCU rows
-//       and so segments
+//       chroma upsampling and colour conversion run after it in the planes
+//       epilogue (csrc/epilogue.cu), because the vertical triangle filter
+//       spans MCU rows and so segments
 //   K2s <kIdctScaled, kOutRgba>    fused_decode_blocks with scale=k
 //       (fused.py:140-161): the k-point scaled IDCT, k in {1, 2, 4}, and the
 //       composite of k x k blocks into the [ceil(H*k/8), ceil(W*k/8)] raster
@@ -105,6 +105,7 @@
 
 #include <atomic>
 
+#include "color.cuh"
 #include "entropy.cuh"
 #include "int_idct.cuh"
 
@@ -400,28 +401,11 @@ __device__ __forceinline__ void idct_int(short* coef, const int* dc,
   }
 }
 
-// One RGBA word from a luma sample and its two other component samples:
-// integer BT.601 (45/32, 11/32 + 23/32, 113/64, arithmetic shifts), clamp,
-// pack r | g << 8 | b << 16 | 0xFF << 24.
+// One RGBA word from a luma sample and its two other component samples
+// (csrc/color.cuh rgba_pixel: integer BT.601, clamp, pack).
 __device__ __forceinline__ uint32_t rgba_word(const DecodeParams& p, int y,
                                               int c1, int c2) {
-  int rr, gg, bb;
-  if (p.ncomp == 1) {
-    rr = gg = bb = y;
-  } else if (p.rgb) {
-    rr = y;
-    gg = c1;
-    bb = c2;
-  } else {
-    const int cb = c1 - 128, cr = c2 - 128;
-    rr = y + ((45 * cr) >> 5);
-    gg = y - ((11 * cb + 23 * cr) >> 5);
-    bb = y + ((113 * cb) >> 6);
-  }
-  rr = min(max(rr, 0), 255);
-  gg = min(max(gg, 0), 255);
-  bb = min(max(bb, 0), 255);
-  return (uint32_t)rr | ((uint32_t)gg << 8) | ((uint32_t)bb << 16) | 0xFF000000u;
+  return rgba_pixel(p.ncomp == 1, p.rgb, y, c1, c2);
 }
 
 // Phase 3, RGBA (compeg_tpu/ops/fused.py rgba_at :290-326). A thread takes

@@ -39,14 +39,15 @@ NVCC_FLAGS = (
 )
 
 # One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s, then the four
-# relayout kernels, the copy's shift route apart from P4's other kernels. A
-# batch of B frames is one launch and adds one.
+# relayout kernels, the copy's shift route apart from P4's other kernels,
+# and the planes epilogue E. A batch of B frames is one launch and adds one.
 LAUNCHES = {"entropy": 0, "fused": 0, "fused_exact": 0, "planes": 0,
             "scaled": 0, "interleave": 0, "swap_crop": 0, "stack": 0,
-            "spread_merge": 0, "copy_shift": 0}
+            "spread_merge": 0, "copy_shift": 0, "epilogue": 0}
 
 # C entry points and their number of tensor arguments (data pointers
-# before the params struct and the stream; csrc/decode.cu, csrc/relayout.cu).
+# before the params struct and the stream; csrc/decode.cu, csrc/relayout.cu,
+# csrc/epilogue.cu).
 ENTRY_POINTS = {
     "compeg_entropy_decode": 3,
     "compeg_fused_decode": 4,
@@ -58,6 +59,7 @@ ENTRY_POINTS = {
     "compeg_relayout_swap_crop": 2,
     "compeg_relayout_stack": 2,
     "compeg_relayout_spread_merge": 3,
+    "compeg_planes_epilogue": 10,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -110,6 +112,24 @@ class RelayoutParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int64) for name in (
         "n", "x", "l", "in_stride", "tiles", "h", "w", "sr", "g", "vec")]
+
+
+class EpilogueParams(ctypes.Structure):
+    """Mirror of ``EpilogueParams`` in csrc/epilogue.cu (all int32)."""
+
+    _fields_ = [
+        ("frames", ctypes.c_int32),
+        ("ncomp", ctypes.c_int32),
+        ("rgb", ctypes.c_int32),
+        ("fancy", ctypes.c_int32),
+        ("width", ctypes.c_int32),
+        ("height", ctypes.c_int32),
+        ("plane_h", ctypes.c_int32 * 3),
+        ("plane_w", ctypes.c_int32 * 3),
+        ("fx", ctypes.c_int32 * 3),
+        ("fy", ctypes.c_int32 * 3),
+        ("valid", ctypes.c_int32 * 3),
+    ]
 
 
 def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
@@ -247,12 +267,15 @@ def _compile(so: str, csrc: str = CSRC) -> None:
 def load(csrc: str = CSRC) -> ctypes.CDLL:
     """Build (unless a library of these very sources exists) and bind the
     kernel sources in ``csrc``: the package's own, or another tree with the
-    same entry points that a tool wants to time beside them."""
+    same entry points that a tool wants to time beside them (an older tree
+    may lack the newer ones, which are then left unbound)."""
     so = library_path(csrc)
     if not os.path.exists(so):
         _compile(so, csrc)
     lib = ctypes.CDLL(so)
     for name, npointers in ENTRY_POINTS.items():
+        if csrc != CSRC and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         # data pointers, then the params struct pointer and the stream
         fn.argtypes = [ctypes.c_void_p] * (npointers + 2)

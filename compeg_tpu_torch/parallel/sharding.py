@@ -30,8 +30,9 @@ start and at a restart boundary whatever Ri is (``r0 = 1`` where Ri divides
 decodes them as ``B_l * NB_l`` frames of the band's geometry
 (``band_rows`` MCU rows high) in ONE launch of the batched kernels, which
 take frames along ``blockIdx.y``: K2 for nearest chroma, K2x with
-``exact_idct``, and K3 followed by ``ops/color.finalize_planes`` for fancy
-chroma.
+``exact_idct``, and K3 followed by one launch of the planes epilogue E
+(``ops/color.finalize_planes``, the rank's frames and halos together) for
+fancy chroma.
 
 **The band gate.** As the JAX package gates every segment by its
 ``seg_mcus``, each band frame decodes only its MCUs inside the image:
@@ -299,8 +300,9 @@ def exchange_halos(planes: Sequence[torch.Tensor], geom: FrameGeometry,
             req.wait()
     widths = [p.shape[2] for p in sub]
 
-    def split(t):
-        return [None] * len(sub) if t is None else list(t.split(widths, 1))
+    def split(t):  # each component's rows, contiguous as E takes them
+        return [None] * len(sub) if t is None else [
+            h.contiguous() for h in t.split(widths, 1)]
 
     above, below = iter(split(from_above)), iter(split(from_below))
     halos: List[Optional[Tuple]] = []
@@ -337,7 +339,8 @@ def decode_batch_sharded(
     stream's ``tables`` and IDCT operand ``op`` (the mode's: integer with
     ``exact_idct``) on the same device, as ``Decoder.frame_constants``
     makes them. All band frames decode in one kernel launch (K2; K2x with
-    ``exact_idct``; K3 and the fancy epilogue with ``fancy_upsample``),
+    ``exact_idct``; K3 and one launch of the planes epilogue with
+    ``fancy_upsample``),
     each gated to its band's MCUs inside the image (:func:`band_gate`: the
     rank's band ``j`` of a frame is the image's band ``s * NB_l + j``), and
     the seq neighbours swap halos where the fancy filter needs them.
@@ -372,17 +375,11 @@ def decode_batch_sharded(
         planes = [p.reshape(b_l, nb_l * p.shape[1], p.shape[2]) for p in
                   F.fused_decode_planes(flat, nseg, tables, op, bg,
                                         exact=exact_idct, gate=gate)]
-        halos = exchange_halos(planes, geom, mesh)
-
-        def frame(i):  # frame i's planes and halos -> its RGBA rows
-            return C.finalize_planes(
-                [p[i] for p in planes], geom.samplings, geom.width, shard_h,
-                fancy=True, rgb=geom.rgb,
-                halos=[None if h is None else (
-                    None if h[0] is None else h[0][i],
-                    None if h[1] is None else h[1][i], h[2]) for h in halos])
-
-        out = torch.stack([frame(i) for i in range(b_l)])
+        # The rank's frames and their halos in one launch of the planes
+        # epilogue E.
+        out = C.finalize_planes(planes, geom.samplings, geom.width, shard_h,
+                                fancy=True, rgb=geom.rgb,
+                                halos=exchange_halos(planes, geom, mesh))
     return out[:, :min(shard_h, max(0, geom.height - s * shard_h))]
 
 

@@ -10,7 +10,7 @@ tier, the default):
          K2  fused_decode_rgba        default: float IDCT, nearest chroma
          K2x fused_decode_rgba_exact  exact_idct: the integer IDCT
          K3  fused_decode_planes      fancy_upsampling or planes_epilogue
-             (then the torch epilogue of ops/color.py), and decode_ycbcr
+             (then the planes epilogue E of ops/color.py), and decode_ycbcr
          K2s fused_decode_scaled      decode_scaled(k), k in {1, 2, 4}
       -> packed RGBA [H, W] int32 on the device (u8 planes for decode_ycbcr)
 
@@ -20,7 +20,8 @@ stage as torch ops, each result a tensor one can look at:
 
       -> K1 entropy_decode            [nseg, ri, DUS, 64] int32 coefficients
       -> ops/idct.idct_pixels, or ops/int_idct.idct_pixels_int (exact_idct)
-      -> ops/color.component_planes -> finalize_planes (nearest or fancy)
+      -> ops/color.component_planes, then finalize_planes (nearest or fancy;
+         the planes epilogue E on the card)
       -> [H, W, 3] u8 on the device
 
 ``zrl_compat`` changes only the entropy phase, in every kernel. The host
@@ -117,9 +118,11 @@ def decode_frame_device(rows: torch.Tensor, nseg: int,
 
     Kernel K1 (:func:`~compeg_tpu_torch.ops.entropy.entropy_decode`) decodes
     the coefficients; the IDCT (float, or the integer butterfly with
-    ``exact_idct``), the component planes, the chroma upsampling (nearest, or
-    the triangle filter with ``fancy``) and the colour conversion are torch
-    ops, as they are XLA ops outside any kernel in the JAX package.
+    ``exact_idct``) and the component planes are torch ops, as they are XLA
+    ops outside any kernel in the JAX package, and the chroma upsampling
+    (nearest, or the triangle filter with ``fancy``) and the colour
+    conversion the planes epilogue E (:func:`~compeg_tpu_torch.ops.color.
+    finalize_planes`), XLA's output fusion there.
     ``qz_by_slot`` are the ``[DUS, 64]`` zigzag quantizers of
     :func:`~compeg_tpu_torch.ops.idct.qz_by_slot_array`; ``op`` is the IDCT
     operand made from them for ``retained`` (``idct_operators``, or
@@ -185,7 +188,7 @@ class Decoder:
         # the documented "Compeg-compat" configuration (PARITY.md).
         self.zrl_compat = zrl_compat
         # fancy_upsampling: libjpeg's triangle-filter chroma (K3 + the
-        # ops/color.py epilogue). planes_epilogue: True routes nearest
+        # planes epilogue E, ops/color.finalize_planes). planes_epilogue: True routes nearest
         # upsampling through K3 + the epilogue too, bit-identical to K2's
         # in-kernel composite; None (auto) and False keep the composite for
         # nearest. Fancy always takes K3, as the JAX package's tiled fused
@@ -409,18 +412,12 @@ class Decoder:
                 return staged(rows)
             return torch.stack([staged(r) for r in rows])
         if self.fancy or self.planes_epilogue is True:
-            planes = self._planes(pf, rows)
-
-            def finalize(p):
-                return C.finalize_planes(p, g.samplings, g.width, g.height,
-                                         fancy=self.fancy, rgb=g.rgb)
-
-            if rows.dim() == 2:
-                return finalize(planes)
-            # Frame by frame: each frame's planes are a slice of the batch's,
-            # so the vertical filter cannot reach into a neighbouring frame.
-            return torch.stack([finalize([p[i] for p in planes])
-                                for i in range(rows.shape[0])])
+            # K3, then the planes epilogue E: a batch's planes are one
+            # [B, Hc, Wc] tensor each and take one launch, whose vertical
+            # filter stays inside each frame.
+            return C.finalize_planes(self._planes(pf, rows), g.samplings,
+                                     g.width, g.height, fancy=self.fancy,
+                                     rgb=g.rgb)
         decode = (F.fused_decode_rgba_exact if self.exact_idct
                   else F.fused_decode_rgba)
         return decode(rows, pf.nseg, pf.tables, pf.op, g)

@@ -20,8 +20,8 @@ tolerance chip_smoke.py's phase (c) applies:
     exact_idct=True               golden idct="int"                 byte for byte
     zrl_compat + exact            golden zrl17=True, idct="int"     byte for byte
     decode_ycbcr (exact)          golden's planes (assemble_planes) byte for byte
-    fancy_upsampling + exact      ops/color.finalize_planes over
-                                  golden's integer planes           byte for byte
+    fancy_upsampling + exact      ops/color.finalize_planes_reference
+                                  over golden's integer planes      byte for byte
     decode_scaled(k), k = 1, 2, 4 golden scale_blocks=k             max |diff| 1
     fused=False                   golden                            max |diff| 1
     fused=False, exact            golden idct="int"                 byte for byte
@@ -229,12 +229,13 @@ def reference_arithmetic(data: bytes) -> Callable[[], np.ndarray]:
 
 
 def planes_rgb(planes, img) -> np.ndarray:
-    """Fancy upsampling and colour (ops/color.finalize_planes, the plain
-    epilogue) over u8 component planes, as RGB."""
+    """Fancy upsampling and colour (ops/color.finalize_planes_reference, the
+    planes epilogue's plain twin) over u8 component planes on the CPU, as
+    RGB."""
     samplings = [(c.h_sample, c.v_sample) for c in img.components]
-    out = C.finalize_planes([torch.from_numpy(p) for p in planes], samplings,
-                            img.width, img.height, fancy=True,
-                            rgb=img.color_space == "rgb")
+    out = C.finalize_planes_reference(
+        [torch.from_numpy(p) for p in planes], samplings, img.width,
+        img.height, fancy=True, rgb=img.color_space == "rgb")
     return F.rgba_to_rgb(out).numpy()
 
 

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from compeg_tpu import encoder, golden  # noqa: E402
 from compeg_tpu.tables import ZIGZAG  # noqa: E402
 from compeg_tpu_torch.ops import _build  # noqa: E402
+from compeg_tpu_torch.ops import color as C  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
 from compeg_tpu_torch.ops import idct as D  # noqa: E402
@@ -51,11 +52,13 @@ def prepared(device, sampling, ri, test_image, h=24, w=40, **knobs):
 
 
 def counted(key, fn, *args, **kwargs):
-    """fn(*args) and check that it launched kernel ``key`` exactly once."""
+    """fn(*args) and check that it launched kernel ``key`` exactly once (each
+    kernel of a tuple of keys once) and no other."""
+    keys = (key,) if isinstance(key, str) else key
     before = dict(_build.LAUNCHES)
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    want = dict(before, **{key: before[key] + 1})
+    want = dict(before, **{k: before[k] + 1 for k in keys})
     assert _build.LAUNCHES == want
     return out
 
@@ -149,6 +152,57 @@ def test_k3_equals_plain_and_golden(cuda, sampling, ri, exact, test_image):
     for p, q in zip(ycbcr, golden_planes(pf.image, golden.idct_pixels_int(
             coeffs, pf.image))):
         assert np.array_equal(p, q)
+
+
+@pytest.mark.parametrize("sampling,ri", CASES)
+@pytest.mark.parametrize("exact", [True, False])
+def test_planes_epilogue_equals_plain(cuda, sampling, ri, exact, test_image):
+    """E over K3's planes, nearest and fancy, equals its plain twin byte for
+    byte: one frame, the frame from planes that start 3 bytes off a word, a
+    batch of two frames that differ, and (4:2:0, 4:4:0) a band of the planes
+    with halo rows above and below and with ``valid``."""
+    data, pf, rows = prepared(cuda, sampling, ri, test_image, h=17, w=37,
+                              exact_idct=exact)
+    g = pf.geom
+    planes = F.fused_decode_planes(rows, pf.nseg, pf.tables, pf.op, g,
+                                   exact=exact)
+    odd = []
+    for p in planes:
+        buf = torch.zeros(p.numel() + 8, dtype=torch.uint8, device=cuda)
+        at = (-buf.data_ptr()) % 4 + 3
+        odd.append(buf[at:at + p.numel()].view(p.shape).copy_(p))
+    dec = Decoder(device=cuda, exact_idct=exact)
+    pf2 = dec.prepare(encoder.encode(
+        test_image(17, 37, "noise", seed=1), sampling=sampling, quality=90,
+        restart_interval_mcus=ri))
+    batch = [torch.stack([p, q]) for p, q in zip(planes, F.fused_decode_planes(
+        dec.upload(pf2), pf2.nseg, pf2.tables, pf2.op, g, exact=exact))]
+    for fancy in (False, True):
+        kw = dict(samplings=g.samplings, width=g.width, height=g.height,
+                  fancy=fancy, rgb=g.rgb)
+        want = C.finalize_planes_reference(planes, **kw)
+        assert torch.equal(counted("epilogue", C.finalize_planes, planes,
+                                   **kw), want)
+        assert torch.equal(counted("epilogue", C.finalize_planes, odd, **kw),
+                           want)
+        assert torch.equal(counted("epilogue", C.finalize_planes, batch, **kw),
+                           C.finalize_planes_reference(batch, **kw))
+    max_v = max(v for _, v in g.samplings)
+    if max_v == 1 or len(planes) == 1:
+        return
+    # Chroma rows [1, 3) with the rows around them, then [2, n) ending in
+    # two rows of content and noise under it.
+    n = planes[1].shape[0]
+    for lo, hi, valid in ((1, 3, None), (2, n, 2)):
+        part = [p[lo * v:hi * v].contiguous() for p, (_, v)
+                in zip(planes, g.samplings)]
+        halos = [None] + [(p[lo - 1].contiguous(),
+                           p[hi].contiguous() if hi < n else None, valid)
+                          for p in planes[1:]]
+        kw = dict(samplings=g.samplings, width=g.width, height=2 * (hi - lo),
+                  fancy=True, rgb=g.rgb, halos=halos)
+        assert torch.equal(counted("epilogue", C.finalize_planes, part, **kw),
+                           C.finalize_planes_reference(part, **kw))
 
 
 @pytest.mark.parametrize("sampling,ri", CASES)
@@ -258,20 +312,23 @@ def test_zigzag_table_mirrors_compeg_tables():
 
 
 def test_entry_points_are_defined_in_the_source():
-    """Every C entry point the binding declares exists in csrc/decode.cu or
-    csrc/relayout.cu with as many pointer arguments, plus its params struct
-    and the stream."""
+    """Every C entry point the binding declares exists in csrc/decode.cu,
+    csrc/relayout.cu or csrc/epilogue.cu with as many pointer arguments,
+    plus its params struct and the stream."""
     src = {}
-    for name in ("decode.cu", "relayout.cu"):
+    for name in ("decode.cu", "relayout.cu", "epilogue.cu"):
         with open(os.path.join(_build.CSRC, name)) as f:
             src[name] = f.read()
     for name, n in _build.ENTRY_POINTS.items():
-        relayout = name.startswith("compeg_relayout_")
-        text = src["relayout.cu" if relayout else "decode.cu"]
+        if name.startswith("compeg_relayout_"):
+            text, struct = src["relayout.cu"], "RelayoutParams"
+        elif name == "compeg_planes_epilogue":
+            text, struct = src["epilogue.cu"], "EpilogueParams"
+        else:
+            text, struct = src["decode.cu"], "DecodeParams"
         sig = re.search(name + r"\((.*?)\)", text, re.S)[1]
         args = [a for a in sig.split(",")]
         assert len(args) == n + 2, name
-        struct = "RelayoutParams" if relayout else "DecodeParams"
         assert struct in args[n] and "stream" in args[n + 1], name
     # ... and the sources define no entry point the binding lacks.
     defined = set(re.findall(r"^int (compeg_\w+)\(", "".join(src.values()),
@@ -390,7 +447,8 @@ def test_batched_kernels_equal_the_single_frame_launches(
     frames = batch_frames(sampling, ri, h, w, test_image)
     knobs = {"float": {}, "exact": {"exact_idct": True},
              "fancy": {"exact_idct": True, "fancy_upsampling": True}}[mode]
-    key = {"float": "fused", "exact": "fused_exact", "fancy": "planes"}[mode]
+    key = {"float": "fused", "exact": "fused_exact",
+           "fancy": ("planes", "epilogue")}[mode]
     bdec = BatchDecoder(device=cuda, **knobs)
     out = counted(key, lambda: bdec.decode_prepared(
         bdec.prepare_batch(frames)))

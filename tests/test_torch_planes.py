@@ -17,6 +17,7 @@ from compeg_tpu import analyze, encoder, golden  # noqa: E402
 from compeg_tpu.ops import color as JC  # noqa: E402
 from compeg_tpu.pipeline import Decoder as JaxDecoder  # noqa: E402
 from compeg_tpu_torch import Decoder  # noqa: E402
+from compeg_tpu_torch.batch import BatchDecoder  # noqa: E402
 from compeg_tpu_torch.ops import _build  # noqa: E402
 from compeg_tpu_torch.ops import color as C  # noqa: E402
 from test_torch_smoke_vectors import (golden_planes, jax_fancy_rgb,  # noqa: E402
@@ -134,11 +135,15 @@ def test_fancy_ignores_planes_epilogue_false(test_image):
 
 
 def test_routing_counts_no_kernel_on_the_cpu(test_image):
-    """On CPU tensors every path takes its plain twin: no launch counted."""
+    """On CPU tensors every path takes its plain twin: no launch counted,
+    the planes epilogue E's included, a fancy batch's too."""
     data = encoder.encode(test_image(16, 32), sampling="420")
+    assert "epilogue" in _build.LAUNCHES
     before = dict(_build.LAUNCHES)
     Decoder(device="cpu", fancy_upsampling=True).decode(data)
+    Decoder(device="cpu", planes_epilogue=True).decode(data)
     Decoder(device="cpu", exact_idct=True).decode_ycbcr(data)
+    BatchDecoder(device="cpu", fancy_upsampling=True).decode([data] * 2)
     assert _build.LAUNCHES == before
 
 
