@@ -101,6 +101,7 @@ SOURCE = "compeg_tpu_torch/csrc/decode.cu"
 RELAYOUT_SOURCE = "compeg_tpu_torch/csrc/relayout.cu"
 EPILOGUE_SOURCE = "compeg_tpu_torch/csrc/epilogue.cu"
 BATCH = 64  # frames of the 4K batch and stream
+S420 = ((2, 2), (1, 1), (1, 1))  # 4:2:0, E's seeded 4K planes
 GARBAGE_SEEDS = range(5, 13)  # frames of random entropy bits (phase e)
 FUZZ = 40  # scan-byte mutations of a small stream (phase e)
 # Peaks of one H100 SXM (NVIDIA's data sheet): device memory and float32
@@ -564,6 +565,28 @@ def main() -> int:
     log("(d) 4K: K2x == plain K2x, K3 (integer) == plain K3, E nearest and "
         "fancy over K3's integer and float planes == its plain twin, on every "
         "pixel")
+    # E over seeded 4K 4:2:0 planes (the 4K frame is 4:2:2, so its planes
+    # never take the vertical filter), and over small planes of samplings
+    # beyond the common ones (E reads each component's factors from its
+    # parameters), against its plain twin.
+    gen = torch.Generator(device="cuda").manual_seed(420)
+    planes420 = [torch.randint(0, 256, shape, generator=gen,
+                               dtype=torch.uint8, device="cuda")
+                 for shape in ((2160, 3840), (1080, 1920), (1080, 1920))]
+    e_vs_plain(planes420, S420, 3840, 2160, False, "4K 4:2:0 seeded planes")
+    for samplings in (((1, 1), (2, 1), (1, 2)), ((1, 2), (2, 2), (1, 1)),
+                      ((2, 2), (1, 1), (2, 1)), ((4, 2), (1, 1), (1, 1))):
+        max_h = max(h for h, _ in samplings)
+        max_v = max(v for _, v in samplings)
+        odd = [torch.randint(0, 256, (-(-37 // (8 * max_v)) * 8 * v,
+                                      -(-45 // (8 * max_h)) * 8 * h),
+                             generator=gen, dtype=torch.uint8, device="cuda")
+               for h, v in samplings]
+        e_vs_plain(odd, samplings, 45, 37, False,
+                   f"37x45 sampled {samplings}")
+    log("(d) E nearest and fancy == its plain twin over seeded 4K 4:2:0 "
+        "planes and over 37x45 planes of four samplings whose factors it "
+        "reads from its parameters")
 
     exact_dec = Decoder(exact_idct=True)
     got, counts = drive(lambda: exact_dec.decode(data4k))
@@ -776,10 +799,13 @@ def main() -> int:
     for k in SCALES:
         ms[f"K2s k={k}"] = cuda_ms(
             lambda k=k: F.fused_decode_scaled(*base, lq[k], g, k))
-    # E over K3's integer 4K planes, nearest and fancy.
+    # E over K3's integer 4K planes and over the seeded 4K 4:2:0 planes,
+    # nearest and fancy.
     for name, fancy in (("E nearest", False), ("E fancy", True)):
         ms[name] = cuda_ms(lambda fancy=fancy: C.finalize_planes(
             k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb))
+        ms[f"{name} 4:2:0"] = cuda_ms(lambda fancy=fancy: C.finalize_planes(
+            planes420, S420, 3840, 2160, fancy=fancy))
     plain = {
         "K2": cuda_ms(lambda: F.fused_decode_rgba_reference(*base, pf.op, g),
                       reps=PLAIN_REPS, warmup=1, burst=1),
@@ -800,6 +826,10 @@ def main() -> int:
     for name, fancy in (("E nearest", False), ("E fancy", True)):
         plain[name] = cuda_ms(lambda fancy=fancy: C.finalize_planes_reference(
             k3, g.samplings, g.width, g.height, fancy=fancy, rgb=g.rgb),
+            reps=PLAIN_REPS, warmup=1, burst=1)
+        plain[f"{name} 4:2:0"] = cuda_ms(
+            lambda fancy=fancy: C.finalize_planes_reference(
+                planes420, S420, 3840, 2160, fancy=fancy),
             reps=PLAIN_REPS, warmup=1, burst=1)
     for name in ms:
         log(f"(f) {name} at 4K: {ms[name]:.4f} ms, plain twin "
@@ -1792,6 +1822,10 @@ def main() -> int:
         # chroma sample of the output grid.
         "E nearest": bound(plane_bytes + px * 4, colour_ops),
         "E fancy": bound(plane_bytes + px * 4, colour_ops + 12 * px),
+        "E nearest 4:2:0": bound(sum(p.numel() for p in planes420) + px * 4,
+                                 colour_ops),
+        "E fancy 4:2:0": bound(sum(p.numel() for p in planes420) + px * 4,
+                               colour_ops + 12 * px),
     }
     for k in SCALES:
         zlen = {1: 1, 2: 5, 4: 25}[k]
@@ -1855,6 +1889,10 @@ def main() -> int:
                   nearest_bound_ms=bounds["E nearest"]["bound_ms"],
                   batched_ms_per_frame={k: batch_ms[f"E {k}"]
                                         for k in ("nearest", "fancy")},
+                  ms_plain_ms_bound_ms_420={
+                      k: [ms[f"E {k} 4:2:0"], plain[f"E {k} 4:2:0"],
+                          bounds[f"E {k} 4:2:0"]["bound_ms"]]
+                      for k in ("nearest", "fancy")},
                   trace_ops_fancy_kernels_per_frame=fancy_kernels,
                   cases=len(e_checked)),
             entry("fused_decode_kernel<kIdctScaled, kOutRgba> (K2s)",

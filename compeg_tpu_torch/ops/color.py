@@ -21,7 +21,11 @@ step is the plain array form of the same integer arithmetic:
 
 :func:`finalize_planes` launches E on CUDA planes and takes
 :func:`finalize_planes_reference` on CPU planes; a batch of frames (or a
-rank's band frames) is one launch.
+rank's band frames) is one launch. E gives the twin's bytes with its own
+arithmetic (csrc/epilogue.cu): a lane a quad of 4 pixels down a strip of
+rows, one load a row per component, the filter's horizontal neighbours by
+shuffle and its vertical ones from a window of the strip's rows, and the
+filter and the colour conversion two samples to a 32-bit word.
 """
 
 from __future__ import annotations
@@ -233,9 +237,23 @@ def finalize_planes(planes: Sequence[torch.Tensor],
     frames = batch or 1
     out = torch.empty((frames, height, width), dtype=torch.int32,
                       device=planes[0].device)
-    p = _build.EpilogueParams(frames=frames, ncomp=len(planes),
-                              rgb=int(rgb),
-                              fancy=int(fancy), width=width, height=height)
+    params, tensors = epilogue_args(planes, samplings, width, height, fancy,
+                                    rgb, halos)
+    _build.launch("compeg_planes_epilogue", *tensors, out, params=params)
+    _build.LAUNCHES["epilogue"] += 1
+    return out if batch is not None else out[0]
+
+
+def epilogue_args(planes, samplings, width, height, fancy=False, rgb=False,
+                  halos=None):
+    """E's launch parameters and the nine tensors its entry point takes
+    before the output (three planes, three ``above`` and three ``below``
+    halo rows, None for a null pointer), for planes that
+    :func:`finalize_planes` has checked."""
+    p = _build.EpilogueParams(
+        frames=planes[0].shape[0] if planes[0].dim() == 3 else 1,
+        ncomp=len(planes), rgb=int(rgb), fancy=int(fancy), width=width,
+        height=height)
     halos = halos or [None] * len(planes)
     above, below = [None] * 3, [None] * 3
     for c, (plane, (fx, fy), halo) in enumerate(
@@ -247,7 +265,4 @@ def finalize_planes(planes: Sequence[torch.Tensor],
             above[c], below[c], valid = halo
             p.valid[c] = -1 if valid is None else valid
     padded = list(planes) + [None] * (3 - len(planes))
-    _build.launch("compeg_planes_epilogue", *padded, *above, *below, out,
-                  params=p)
-    _build.LAUNCHES["epilogue"] += 1
-    return out if batch is not None else out[0]
+    return p, padded + above + below

@@ -21,10 +21,14 @@ lookup (:func:`legacy_packed`).
 On ``bench_assets/bench4k.jpg``, the same frame with garbage entropy bits
 (``testdata.garbage_scan``, seed 5) and the small streams of
 ``testdata/smoke.npz`` every fused kernel (K2, K2x, K3 integer and float,
-K2s at k = 1, 2, 4), K1 and every relayout call of :func:`relayout_calls`
+K2s at k = 1, 2, 4), K1, every relayout call of :func:`relayout_calls`
 (the copy, spread and merge, the interleave on both routes, the swap and
-crop on both) of every tree must give the first tree's output bit for bit; a difference is reported with its
-size and makes the exit code 1. Then the times: CUDA events around a burst
+crop on both) and the planes epilogue E on the inputs of
+:func:`epilogue_calls` (the 4K frame's integer planes, seeded 4K planes
+of every sampling that E has an instantiation for, a batch of 64 frames,
+band frames with halo rows and with a content edge; nearest and fancy)
+of every tree must give the first tree's output bit for bit; a
+difference is reported with its size and makes the exit code 1. Then the times: CUDA events around a burst
 of ``BURST`` launches enqueued while the card still spins in a kernel
 before them (``profiling.burst_ms``: the card, not the host's launch path,
 sets the time), divided by their number, the trees taking turns (forward in even
@@ -33,10 +37,14 @@ K2x and K3 also on a batch of ``FRAMES`` copies of the frame, per frame;
 each relayout call alternating between two inputs so that no launch finds
 its input in the L2 cache, beside the one PyTorch call of the same
 function (``library``: ``clone()``, ``transpose(-1, -2).contiguous()``,
-the swap's reshape, transpose and crop) in the same rounds. ``--ptxas``
-prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu and
-relayout.cu (registers, spills) first. One JSON object with every median is printed and, with
-``--out``, written to that file.
+the swap's reshape, transpose and crop) in the same rounds; E likewise on
+two plane sets (the batch per frame), each beside its bound (the planes and
+halos read once and the raster written once at 3.35 TB/s, ``bound_ms``).
+``--kernels decode``, ``relayout`` or ``epilogue`` takes one part.
+``--ptxas`` prints what ``nvcc -Xptxas -v`` says of each tree's decode.cu,
+relayout.cu and epilogue.cu (those of the part taken; registers, spills)
+first. One JSON object with every median is printed and, with ``--out``,
+written to that file.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import torch
 from .. import testdata
 from ..metadata import analyze
 from ..ops import _build
+from ..ops import color as C
 from ..ops import entropy as E
 from ..ops import fused as F
 from ..ops import idct as D
@@ -65,14 +74,18 @@ from .exp_relayout import BENCH
 
 SCALES = (1, 2, 4)
 BURST = 8  # launches between two events
+HBM_BYTES_PER_S = 3.35e12  # one H100 SXM's device memory (data sheet)
 FRAMES = 64  # copies of the 4K frame in the batch
 
 
-def ptxas_report(csrc: str) -> str:
-    """The resource lines of ``nvcc -Xptxas -v`` for ``csrc``'s decode.cu
-    and relayout.cu."""
+def ptxas_report(csrc: str, names=("decode.cu", "relayout.cu",
+                                     "epilogue.cu")) -> str:
+    """The resource lines of ``nvcc -Xptxas -v`` for the sources ``names``
+    of ``csrc`` that it holds."""
     lines = []
-    for name in ("decode.cu", "relayout.cu"):
+    for name in names:
+        if not os.path.exists(os.path.join(csrc, name)):
+            continue
         res = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              os.devnull, os.path.join(csrc, name)],
@@ -296,6 +309,92 @@ def relayout_calls(device) -> Dict[str, tuple]:
     return calls
 
 
+def epilogue_calls(planes422, geom, device) -> Dict[str, tuple]:
+    """``name -> (fn(lib, i), bytes)`` of the planes epilogue E, nearest and
+    fancy, through each tree's C entry point: over ``planes422`` (the 4K
+    frame's integer planes from K3) and a copy of them at other addresses;
+    over two seeded random 4K frames of each of 4:2:0, 4:4:0, and (nearest
+    only: nothing filters) 4:4:4, 4:1:1 and gray; over a batch of ``FRAMES``
+    copies of the 4K planes in one launch (one input: 2.1 GB of output
+    leave nothing of it in L2); and, fancy only, over the 4:2:0 frames cut
+    into four band frames of one launch with their ``above`` and ``below``
+    halo rows, and with a content edge (``valid``) instead of ``below``.
+    Call ``i`` reads input ``i % 2``, so no launch finds its planes in the
+    L2 cache. ``bytes`` are the planes and halos read once and the raster
+    written once."""
+    s420 = ((2, 2), (1, 1), (1, 1))
+
+    def seeded(samplings, seed):
+        """Random 4K planes of ``samplings`` (luma's factors the largest)."""
+        h0, v0 = samplings[0]
+        return tuple(
+            torch.randint(0, 256, (2160 * v // v0, 3840 * h // h0),
+                          generator=torch.Generator(device).manual_seed(
+                              seed + c), dtype=torch.uint8, device=device)
+            for c, (h, v) in enumerate(samplings))
+
+    sets = {
+        "4:2:2": (geom.samplings, [planes422,
+                                   tuple(p.clone() for p in planes422)]),
+        "4:2:0": (s420, [seeded(s420, seed) for seed in (1, 11)]),
+    }
+    for label, samplings, seed in (
+            ("4:4:4", ((1, 1), (1, 1), (1, 1)), 21),
+            ("4:4:0", ((1, 2), (1, 1), (1, 1)), 31),
+            ("4:1:1", ((4, 1), (1, 1), (1, 1)), 41),
+            ("gray", ((1, 1),), 51)):
+        sets[label] = (samplings, [seeded(samplings, s)
+                                   for s in (seed, seed + 10)])
+    batch = tuple(p.unsqueeze(0).expand(FRAMES, *p.shape).contiguous()
+                  for p in planes422)
+    sets[f"batch of {FRAMES}, 4:2:2"] = (geom.samplings, [batch, batch])
+
+    def bands(planes, valid):
+        """The frame as four band frames and each chroma plane's halos."""
+        parts = tuple(p.reshape(4, p.shape[0] // 4, p.shape[1])
+                      for p in planes)
+        halos = [None]
+        for p in planes[1:]:
+            n = p.shape[0] // 4
+            above = p[(torch.arange(4, device=device) * n - 1) % p.shape[0]]
+            below = p[(torch.arange(1, 5, device=device) * n) % p.shape[0]]
+            halos.append((above.contiguous(),
+                          None if valid else below.contiguous(), valid))
+        return parts, halos
+
+    def e(samplings, inputs, width, height, fancy, halos=None):
+        frames = inputs[0][0].shape[0] if inputs[0][0].dim() == 3 else 1
+
+        def call(lib, i=0):
+            out = torch.empty((frames, height, width), dtype=torch.int32,
+                              device=device)
+            params, tensors = C.epilogue_args(
+                inputs[i % 2], samplings, width, height, fancy,
+                halos=None if halos is None else halos[i % 2])
+            _build.launch("compeg_planes_epilogue", *tensors, out, lib=lib,
+                          params=params)
+            return (out,)
+        halo_bytes = sum(h.numel() for halo in (halos or [()])[0] if halo
+                         for h in halo[:2] if h is not None)
+        return call, (sum(p.numel() for p in inputs[0]) + halo_bytes
+                      + frames * width * height * 4)
+
+    calls = {}
+    for label, (samplings, inputs) in sets.items():
+        (h0, v0), rest = samplings[0], samplings[1:]
+        # the triangle filter runs only where a factor is 2
+        filtered = any(h0 == 2 * h or v0 == 2 * v for h, v in rest)
+        for mode, fancy in (("nearest", False), ("fancy", True))[
+                :2 if filtered else 1]:
+            calls[f"E {mode}, {label}"] = e(samplings, inputs, 3840, 2160,
+                                            fancy)
+    for label, valid in (("halo rows", None), ("a content edge", 200)):
+        cut = [bands(planes, valid) for planes in sets["4:2:0"][1]]
+        calls[f"E fancy, 4:2:0 in four bands with {label}"] = e(
+            s420, [c[0] for c in cut], 3840, 540, True, [c[1] for c in cut])
+    return calls
+
+
 def time_in_turns(fns: List[Callable], reps: int,
                   burst: int = 1) -> List[float]:
     """Median CUDA-event ms per call of each ``fn(i)``, timed in bursts of
@@ -323,7 +422,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-change", action="store_true",
                     help="leave the package's own csrc out")
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", choices=("all", "decode", "relayout"),
+    ap.add_argument("--kernels",
+                    choices=("all", "decode", "relayout", "epilogue"),
                     default="all", help="which kernels to check and time")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--out", help="also write the result JSON to this file")
@@ -344,7 +444,12 @@ def main(argv=None) -> int:
     libs = []
     for name, csrc in trees:
         if args.ptxas:
-            print(f"--- {name}: ptxas\n{ptxas_report(csrc)}", flush=True)
+            names = {"decode": ("decode.cu",), "relayout": ("relayout.cu",),
+                     "epilogue": ("epilogue.cu",)}.get(
+                         args.kernels, ("decode.cu", "relayout.cu",
+                                        "epilogue.cu"))
+            print(f"--- {name}: ptxas\n{ptxas_report(csrc, names)}",
+                  flush=True)
         libs.append(_build.load(os.path.abspath(csrc)))
         LAYOUT[libs[-1]] = tree_lut_bits(csrc)
         print(f"built {name} from {csrc} (tables: LUT_BITS "
@@ -363,8 +468,8 @@ def main(argv=None) -> int:
                 bad.append(f"{label}: {name} differs from {names[0]} by up "
                            f"to {differences(got, want)}")
 
-    calls4k, batch, rl, library = {}, {}, {}, {}
-    if args.kernels != "relayout":
+    calls4k, batch, rl, library, ep = {}, {}, {}, {}, {}
+    if args.kernels in ("all", "decode"):
         vec = testdata.load()
         for i, label in enumerate(vec["labels"]):
             calls = frame_calls(vec[f"jpeg_{i}"].tobytes(), device)
@@ -383,7 +488,14 @@ def main(argv=None) -> int:
         print("4K garbage bits: compared", flush=True)
         calls4k = frame_calls(data4k, device)
         batch = calls4k.pop("_batch")(FRAMES)
-    if args.kernels != "decode":
+    if args.kernels in ("all", "epilogue"):
+        dec = Decoder(device=device, exact_idct=True)
+        with open(BENCH, "rb") as f:
+            pf = dec.prepare(f.read())
+        k3 = F.fused_decode_planes(dec.upload(pf), pf.nseg, pf.tables, pf.op,
+                                   pf.geom, exact=True)
+        ep = epilogue_calls(k3, pf.geom, device)
+    if args.kernels in ("all", "relayout"):
         for kname, (call, lib_call) in relayout_calls(device).items():
             rl[kname] = call
             if lib_call is not None:
@@ -392,9 +504,11 @@ def main(argv=None) -> int:
         check(f"4K {kname}", call)
     for kname, call in batch.items():
         check(f"4K batch of {FRAMES} {kname}", call)
+    for kname, (call, _) in ep.items():
+        check(kname, call)
 
     result = {"card": card, "trees": names, "reps": args.reps,
-              "burst": BURST, "ms": {}}
+              "burst": BURST, "ms": {}, "bound_ms": {}}
 
     def timed(label, call, reps, per=1, burst=BURST, extra=()):
         fns = [lambda i, lib=lib: call(lib, i) for lib in libs] + [
@@ -413,6 +527,16 @@ def main(argv=None) -> int:
     for kname, call in rl.items():
         extra = [("library", library[kname])] if kname in library else ()
         timed(kname, call, args.reps, extra=extra)
+    for kname, (call, nbytes) in ep.items():
+        per = FRAMES if "batch" in kname else 1
+        result["bound_ms"][kname] = nbytes / per / HBM_BYTES_PER_S * 1e3
+        if per > 1:
+            timed(f"{kname}, per frame", call, max(3, args.reps // 4),
+                  per=per, burst=1)
+        else:
+            timed(kname, call, args.reps)
+        print(f"  bound {result['bound_ms'][kname]:.5f} ms "
+              f"({nbytes / per:,.0f} B a frame at 3.35 TB/s)", flush=True)
     result["differences"] = bad
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -655,21 +655,22 @@ def test_burst_ms_times_the_card_not_the_host(cuda):
 @pytest.mark.parametrize("fancy", [False, True])
 def test_staged_tier_runs_k1_and_equals_golden(cuda, sampling, ri, fancy,
                                                test_image):
-    """Decoder(fused=False): one launch of K1 and no fused kernel; with
-    exact_idct golden's integer RGB (nearest) or the fused fancy decode's
-    bytes; the float decode within 1 of golden."""
+    """Decoder(fused=False): one launch of K1 and one of E and no fused
+    kernel; with exact_idct golden's integer RGB (nearest) or the fused
+    fancy decode's bytes; the float decode within 1 of golden."""
     data = encoder.encode(test_image(17, 37, "noise"), sampling=sampling,
                           quality=90, restart_interval_mcus=ri)
     dec = Decoder(device=cuda, fused=False, exact_idct=True,
                   fancy_upsampling=fancy)
-    got = counted("entropy", dec.decode, data)
+    got = counted(("entropy", "epilogue"), dec.decode, data)
     if fancy:
         want = Decoder(device=cuda, exact_idct=True,
                        fancy_upsampling=True).decode(data)
     else:
         want = golden.decode_rgb(data, idct="int")
     assert np.array_equal(got, want)
-    flt = counted("entropy", Decoder(device=cuda, fused=False).decode, data)
+    flt = counted(("entropy", "epilogue"),
+                  Decoder(device=cuda, fused=False).decode, data)
     if not fancy:
         assert np.abs(flt.astype(int) - golden.decode_rgb(data)).max() <= 1
 
@@ -679,8 +680,10 @@ def test_staged_batch_on_the_card(cuda, test_image):
     bdec = BatchDecoder(device=cuda, fused=False, exact_idct=True)
     before = dict(_build.LAUNCHES)
     got = bdec.decode(frames)
-    want = dict(before, entropy=before["entropy"] + len(frames))
-    assert _build.LAUNCHES == want  # a K1 launch per frame, no fused kernel
+    want = dict(before, entropy=before["entropy"] + len(frames),
+                epilogue=before["epilogue"] + len(frames))
+    # a K1 and an E launch per frame, no fused kernel
+    assert _build.LAUNCHES == want
     for i, f in enumerate(frames):
         assert np.array_equal(got[i], golden.decode_rgb(f, idct="int")), i
 
