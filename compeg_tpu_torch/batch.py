@@ -59,7 +59,8 @@ class _Staging:
     def wait(self) -> None:
         """Block until the last upload from this buffer has completed."""
         if self.event is not None:
-            self.event.synchronize()
+            with stage_timer("ring_wait"):
+                self.event.synchronize()
             self.event = None
 
     def array(self, *shape: int) -> np.ndarray:
@@ -77,17 +78,19 @@ class _Staging:
         the current stream, asynchronously from pinned memory, and remember
         the copy's event. Part of every frame of a batch is not contiguous:
         it travels as one copy a frame."""
-        src = self.tensor[..., lo:None if nrows is None else lo + nrows, :]
-        if src.is_contiguous():
-            out = src.to(device, non_blocking=self.cuda)
-        else:
-            out = torch.empty(src.shape, dtype=src.dtype, device=device)
-            for o, part in zip(out, src):
-                o.copy_(part, non_blocking=self.cuda)
-        if self.cuda:
-            self.event = torch.cuda.Event()
-            self.event.record()
-        return out
+        with stage_timer("upload"):
+            hi = None if nrows is None else lo + nrows
+            src = self.tensor[..., lo:hi, :]
+            if src.is_contiguous():
+                out = src.to(device, non_blocking=self.cuda)
+            else:
+                out = torch.empty(src.shape, dtype=src.dtype, device=device)
+                for o, part in zip(out, src):
+                    o.copy_(part, non_blocking=self.cuda)
+            if self.cuda:
+                self.event = torch.cuda.Event()
+                self.event.record()
+            return out
 
 
 class _Readback:
@@ -325,7 +328,8 @@ class StreamDecoder:
     def _prepare(self, data) -> Tuple[PreparedFrame, _Staging]:
         """Prepare one frame into a staging buffer of the ring (blocks until
         one is free and its last upload has completed)."""
-        staging = self._ring.get()
+        with stage_timer("ring_wait"):
+            staging = self._ring.get()
         try:
             return self._dec.prepare(data, alloc=staging.array), staging
         except BaseException:
@@ -371,7 +375,8 @@ class StreamDecoder:
                         break
                     pending.append(ex.submit(self._prepare, data))
                 while pending:
-                    pf, staging = pending.popleft().result()
+                    with stage_timer("stream_wait_prepare"):
+                        pf, staging = pending.popleft().result()
                     data = next(it, None)
                     if data is not None:
                         pending.append(ex.submit(self._prepare, data))

@@ -312,24 +312,26 @@ class Decoder:
         """Host preparation of one frame. ``alloc(rows, W)`` supplies the
         uint32 array the rows are packed into (a pinned staging buffer, for
         an asynchronous upload); a new array by default."""
-        with stage_timer("parse"):
-            if isinstance(data, ImageData):
-                img, consts = data, None
-            else:
-                img, consts = self._analyze(data)
-        nseg = img.total_restart_intervals
-        if nseg < 10000 and not self._warned_parallelism:
-            # The reference's guidance (src/lib.rs:838-846): few restart
-            # intervals leave the device mostly idle.
-            log.info("image has %d restart intervals (parallelism); device "
-                     "decode is most efficient above ~10000", nseg)
-            self._warned_parallelism = True
-        self.check_budget(img, 1)
-        with stage_timer("preprocess"):
-            rows, packer = self._pack(img, alloc)
-        pf = self.frame_constants(img, consts)
-        pf.rows, pf.packer = rows, packer
-        return pf
+        with stage_timer("prepare"):
+            with stage_timer("parse"):
+                if isinstance(data, ImageData):
+                    img, consts = data, None
+                else:
+                    img, consts = self._analyze(data)
+            nseg = img.total_restart_intervals
+            if nseg < 10000 and not self._warned_parallelism:
+                # The reference's guidance (src/lib.rs:838-846): few restart
+                # intervals leave the device mostly idle.
+                log.info("image has %d restart intervals (parallelism); "
+                         "device decode is most efficient above ~10000",
+                         nseg)
+                self._warned_parallelism = True
+            self.check_budget(img, 1)
+            with stage_timer("preprocess"):
+                rows, packer = self._pack(img, alloc)
+            pf = self.frame_constants(img, consts)
+            pf.rows, pf.packer = rows, packer
+            return pf
 
     def frame_constants(self, img: ImageData,
                         consts: Optional[Dict]) -> PreparedFrame:
@@ -386,8 +388,9 @@ class Decoder:
 
     def upload(self, pf: PreparedFrame) -> torch.Tensor:
         """The frame's segment rows as an int32 tensor on the device."""
-        rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
-        return rows.to(self.device)
+        with stage_timer("upload"):
+            rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
+            return rows.to(self.device)
 
     def _planes(self, pf: PreparedFrame, rows: torch.Tensor):
         return F.fused_decode_planes(rows, pf.nseg, pf.tables, pf.op,
@@ -401,26 +404,27 @@ class Decoder:
         ``pf``'s geometry and tables to ``[B, H, W]`` in one launch. The
         staged tier gives ``[H, W, 3]`` (``[B, H, W, 3]``) u8 instead, like
         the JAX package's, frame by frame with one K1 launch each."""
-        g = pf.geom
-        if not self.fused:
-            def staged(r):
-                return decode_frame_device(
-                    r, pf.nseg, pf.tables, None, g, self.retained,
-                    self.fancy, self.exact_idct, op=pf.op)
+        with stage_timer("launch"):  # the host's enqueueing of the work
+            g = pf.geom
+            if not self.fused:
+                def staged(r):
+                    return decode_frame_device(
+                        r, pf.nseg, pf.tables, None, g, self.retained,
+                        self.fancy, self.exact_idct, op=pf.op)
 
-            if rows.dim() == 2:
-                return staged(rows)
-            return torch.stack([staged(r) for r in rows])
-        if self.fancy or self.planes_epilogue is True:
-            # K3, then the planes epilogue E: a batch's planes are one
-            # [B, Hc, Wc] tensor each and take one launch, whose vertical
-            # filter stays inside each frame.
-            return C.finalize_planes(self._planes(pf, rows), g.samplings,
-                                     g.width, g.height, fancy=self.fancy,
-                                     rgb=g.rgb)
-        decode = (F.fused_decode_rgba_exact if self.exact_idct
-                  else F.fused_decode_rgba)
-        return decode(rows, pf.nseg, pf.tables, pf.op, g)
+                if rows.dim() == 2:
+                    return staged(rows)
+                return torch.stack([staged(r) for r in rows])
+            if self.fancy or self.planes_epilogue is True:
+                # K3, then the planes epilogue E: a batch's planes are one
+                # [B, Hc, Wc] tensor each and take one launch, whose vertical
+                # filter stays inside each frame.
+                return C.finalize_planes(self._planes(pf, rows), g.samplings,
+                                         g.width, g.height, fancy=self.fancy,
+                                         rgb=g.rgb)
+            decode = (F.fused_decode_rgba_exact if self.exact_idct
+                      else F.fused_decode_rgba)
+            return decode(rows, pf.nseg, pf.tables, pf.op, g)
 
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
         """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device
@@ -429,13 +433,18 @@ class Decoder:
 
     def decode(self, data) -> np.ndarray:
         """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array."""
-        out = self.decode_prepared(self.prepare(data))
-        return to_rgb_tensor(out).cpu().numpy()
+        with stage_timer("decode"):
+            out = self.decode_prepared(self.prepare(data))
+            with stage_timer("readback"):  # waits for the device work too
+                return to_rgb_tensor(out).cpu().numpy()
 
     def decode_rgba(self, data) -> np.ndarray:
         """Decode to ``[H, W, 4]`` u8 RGBA (alpha 255), the reference's
         output format."""
-        out = self.decode_prepared(self.prepare(data)).cpu().numpy()
+        with stage_timer("decode"):
+            out = self.decode_prepared(self.prepare(data))
+            with stage_timer("readback"):
+                out = out.cpu().numpy()
         if out.dtype == np.uint8:  # the staged tier's [H, W, 3]
             alpha = np.full(out.shape[:2] + (1,), 255, np.uint8)
             return np.concatenate([out, alpha], axis=-1)

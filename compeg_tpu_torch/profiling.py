@@ -6,9 +6,9 @@ trace level (``t_preprocess``, ``t_enqueue_writes`` in ``enqueue``,
 516-522). This module (the port's copy of compeg_tpu/profiling.py) provides
 the same facility for this engine plus device-side timing on a CUDA card:
 
-    with stage_timer("preprocess"):
-        ...
-    log_stats()                     # dump accumulated stats at trace level
+    with stage_timer("preprocess"):  # a span: counted always, and traced
+        ...                          # while a torch.profiler session records
+    log_stats()                     # dump accumulated stats
 
     ms, rows = trace_device_ms(lambda: dec.decode_prepared(pf))
 
@@ -19,17 +19,30 @@ the same facility for this engine plus device-side timing on a CUDA card:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
 import re
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
 log = logging.getLogger("compeg_tpu_torch.profiling")
+
+# The module global of torch.autograd.profiler that a torch.profiler session
+# sets while it records (``with profile(...)`` and ``profile().start()``
+# alike) and clears when it stops. It is private, so a span reads it by this
+# name alone, and a test fails where a torch release moves it.
+PROFILER_FLAG = "_is_profiler_enabled"
+# The prefix of every span's name in a profiler trace.
+SPAN_PREFIX = "compeg."
 
 
 @dataclass
@@ -43,35 +56,58 @@ class StageStats:
         return self.total_s / self.count * 1e3 if self.count else 0.0
 
 
-_stats: Dict[str, StageStats] = defaultdict(StageStats)
+_stats: Dict[str, StageStats] = {}
+_lock = threading.Lock()  # spans end on several threads at once
 
 
-@contextlib.contextmanager
-def stage_timer(name: str) -> Iterator[None]:
-    """Accumulate wall time for a named pipeline stage; logs at trace level
-    (DEBUG-5) like the reference's ``time()`` helper (src/lib.rs:532-536)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        s = _stats[name]
-        s.count += 1
-        s.total_s += dt
-        s.max_s = max(s.max_s, dt)
-        log.debug("t_%s: %.3f ms", name, dt * 1e3)
+class stage_timer:
+    """A span of a named pipeline stage: its wall time is added to the
+    stage's :class:`StageStats` (like the reference's ``time()`` helper,
+    src/lib.rs:532-536), and while a ``torch.profiler`` session records it
+    is also a ``record_function`` span ``compeg.<name>``, on the calling
+    thread and the trace's clock, nested in the span that encloses it. With
+    no session it never touches ``record_function``, whose enter and exit
+    cost tens of microseconds."""
+
+    __slots__ = ("name", "_t0", "_span")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> None:
+        self._span = None
+        if getattr(_autograd_profiler, PROFILER_FLAG):
+            self._span = record_function(SPAN_PREFIX + self.name)
+            self._span.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        dt = time.perf_counter() - self._t0
+        if self._span is not None:
+            self._span.__exit__(*exc)
+        with _lock:
+            s = _stats.get(self.name)
+            if s is None:
+                s = _stats[self.name] = StageStats()
+            s.count += 1
+            s.total_s += dt
+            if dt > s.max_s:
+                s.max_s = dt
 
 
 def get_stats() -> Dict[str, StageStats]:
-    return dict(_stats)
+    """A copy of every stage's stats, taken at one instant."""
+    with _lock:
+        return {k: dataclasses.replace(v) for k, v in _stats.items()}
 
 
 def reset_stats() -> None:
-    _stats.clear()
+    with _lock:
+        _stats.clear()
 
 
 def log_stats(level: int = logging.INFO) -> None:
-    for name, s in sorted(_stats.items()):
+    for name, s in sorted(get_stats().items()):
         log.log(
             level,
             "%s: n=%d mean=%.3f ms max=%.3f ms",
@@ -312,7 +348,6 @@ def trace_device(run_frame, frames: int = 5) -> DeviceBusy:
     where the profiler shows no device work, and where every session lost
     records."""
     import torch
-    from torch.profiler import record_function
 
     out = run_frame()  # warm-up: builds, caches, allocator
     last = out[-1] if isinstance(out, (tuple, list)) else out
