@@ -49,7 +49,7 @@ from .ops import entropy as E
 from .ops import fused as F
 from .ops import idct as D
 from .ops import int_idct as I
-from .profiling import stage_timer
+from .profiling import PINNED_READBACKS, count, stage_timer
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -145,6 +145,24 @@ def to_rgb_tensor(out: torch.Tensor) -> torch.Tensor:
     """A decode result as ``[..., H, W, 3]`` u8: the fused tier's packed
     RGBA ``[..., H, W]`` int32 unpacked, the staged tier's u8 as it is."""
     return out if out.dtype == torch.uint8 else F.rgba_to_rgb(out)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array of its own, once the work that makes it is
+    done. A CUDA tensor is copied into a new block of torch's pinned-memory
+    cache, which the card writes by DMA at the link's rate, with no staging
+    copy on the host and no page faults; the block goes back to the cache
+    when the array is dropped, and the next readback of its size takes it
+    again (counted as :data:`~compeg_tpu_torch.profiling.PINNED_READBACKS`).
+    A view on the card is copied as a contiguous array. A CPU tensor is
+    returned as its numpy view."""
+    if not t.is_cuda:
+        return t.numpy()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    count(PINNED_READBACKS)
+    return buf.numpy()
 
 
 class Decoder:
@@ -432,19 +450,25 @@ class Decoder:
         return self.decode_rows(pf, self.upload(pf))
 
     def decode(self, data) -> np.ndarray:
-        """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array."""
+        """Decode one JPEG to an ``[H, W, 3]`` u8 RGB numpy array, a new
+        one every call, which the caller may keep. On a CUDA device the
+        array lies in page-locked host memory from torch's pinned-memory
+        cache (:func:`to_host`) and goes back to that cache when it is
+        dropped: a caller who holds N frames holds N frames of pinned
+        memory."""
         with stage_timer("decode"):
             out = self.decode_prepared(self.prepare(data))
             with stage_timer("readback"):  # waits for the device work too
-                return to_rgb_tensor(out).cpu().numpy()
+                return to_host(to_rgb_tensor(out))
 
     def decode_rgba(self, data) -> np.ndarray:
         """Decode to ``[H, W, 4]`` u8 RGBA (alpha 255), the reference's
-        output format."""
+        output format; on a CUDA device in pinned memory, as :meth:`decode`
+        gives it."""
         with stage_timer("decode"):
             out = self.decode_prepared(self.prepare(data))
             with stage_timer("readback"):
-                out = out.cpu().numpy()
+                out = to_host(out)
         if out.dtype == np.uint8:  # the staged tier's [H, W, 3]
             alpha = np.full(out.shape[:2] + (1,), 255, np.uint8)
             return np.concatenate([out, alpha], axis=-1)
@@ -470,8 +494,7 @@ class Decoder:
         max_h = max(h for h, _ in g.samplings)
         max_v = max(v for _, v in g.samplings)
         return [
-            p[: -(-g.height * v // max_v), : -(-g.width * h // max_h)]
-            .cpu().numpy()
+            to_host(p[: -(-g.height * v // max_v), : -(-g.width * h // max_h)])
             for p, (h, v) in zip(self._planes(pf, self.upload(pf)),
                                  g.samplings)
         ]
@@ -492,7 +515,7 @@ class Decoder:
         lq_k = self._operator(pf.image, pf.consts, scale_blocks)
         out = F.fused_decode_scaled(self.upload(pf), pf.nseg, pf.tables, lq_k,
                                     pf.geom, scale_blocks)
-        return F.rgba_to_rgb(out).cpu().numpy()
+        return to_host(F.rgba_to_rgb(out))
 
 
 @dataclass
@@ -508,8 +531,10 @@ class DecodeOp:
     geometry_changed: bool
 
     def rgb(self) -> np.ndarray:
-        """Blocking readback to ``[H, W, 3]`` u8."""
-        return to_rgb_tensor(self.result).cpu().numpy()
+        """Blocking readback to ``[H, W, 3]`` u8; on a CUDA device a new
+        array every call, in page-locked memory from torch's pinned-memory
+        cache, which takes it back when it is dropped (:func:`to_host`)."""
+        return to_host(to_rgb_tensor(self.result))
 
     def block_until_ready(self) -> "DecodeOp":
         if self.result.is_cuda:

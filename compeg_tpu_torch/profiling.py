@@ -8,7 +8,8 @@ the same facility for this engine plus device-side timing on a CUDA card:
 
     with stage_timer("preprocess"):  # a span: counted always, and traced
         ...                          # while a torch.profiler session records
-    log_stats()                     # dump accumulated stats
+    count(PINNED_READBACKS)         # an event with no span of its own
+    log_stats()                     # dump accumulated stats and counts
 
     ms, rows = trace_device_ms(lambda: dec.decode_prepared(pf))
 
@@ -57,7 +58,14 @@ class StageStats:
 
 
 _stats: Dict[str, StageStats] = {}
+_counts: Dict[str, int] = {}
 _lock = threading.Lock()  # spans end on several threads at once
+
+# The count of one-shot readbacks that went into a block of torch's
+# pinned-memory cache (``pipeline.to_host``). Beside it the cache's own
+# count of new page-locked blocks (:func:`host_allocs`) gives the cache's
+# hit share, 1 - new blocks / pinned readbacks.
+PINNED_READBACKS = "readback_pinned"
 
 
 class stage_timer:
@@ -95,15 +103,41 @@ class stage_timer:
                 s.max_s = dt
 
 
+def count(name: str) -> None:
+    """Count one event of ``name`` that has no span of its own."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + 1
+
+
 def get_stats() -> Dict[str, StageStats]:
     """A copy of every stage's stats, taken at one instant."""
     with _lock:
         return {k: dataclasses.replace(v) for k, v in _stats.items()}
 
 
+def get_counts() -> Dict[str, int]:
+    """A copy of every :func:`count`, taken at one instant."""
+    with _lock:
+        return dict(_counts)
+
+
 def reset_stats() -> None:
+    """Clear the stages' stats and the counts."""
     with _lock:
         _stats.clear()
+        _counts.clear()
+
+
+def host_allocs() -> int:
+    """The page-locked blocks torch's pinned-memory cache has made in this
+    process (``num_host_alloc`` of ``torch.cuda.host_memory_stats()``; a
+    request the cache serves from a block it holds adds nothing), 0 before
+    CUDA is initialised."""
+    import torch
+
+    if not torch.cuda.is_initialized():
+        return 0
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def log_stats(level: int = logging.INFO) -> None:
@@ -116,6 +150,17 @@ def log_stats(level: int = logging.INFO) -> None:
             s.mean_ms,
             s.max_s * 1e3,
         )
+    counts = get_counts()
+    for name, n in sorted(counts.items()):
+        log.log(level, "%s: n=%d", name, n)
+    pinned = counts.get(PINNED_READBACKS)
+    if pinned:
+        # The blocks are the process's, from every user of the cache and
+        # from before the last reset: the share is a lower bound.
+        allocs = host_allocs()
+        log.log(level, "pinned-memory cache: %d page-locked blocks made, "
+                "%d pinned readbacks (hit share >= %.4f)", allocs, pinned,
+                1 - allocs / pinned)
 
 
 def hard_sync(x) -> None:
