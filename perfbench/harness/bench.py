@@ -199,7 +199,7 @@ class Ctx:
         from .roofline import decode_bytes, scan_bytes
 
         n = self.traffic["pool_frames"]
-        scan = sum(scan_bytes(F.frame(self.loop.src, self.seed, j))
+        scan = sum(scan_bytes(self.loop.src.frame(self.seed, j))
                    for j in range(n)) / n
         return decode_bytes(scan, self.cfg["height"], self.cfg["width"])
 
@@ -354,8 +354,9 @@ def run(argv, t_start: float, root: str, device: Optional[str] = None,
     if cuda:
         torch.cuda.empty_cache()
     src = F.source(cfg)
-    numbers = check.compare(cfg, lambda j: F.frame(src, args.seed, j),
-                            sample, traffic["check_expected"])
+    numbers = check.compare(cfg, lambda j: src.frame(args.seed, j),
+                            sample, traffic["check_expected"],
+                            lanes=lambda j: src.lanes(args.seed, j))
     progress("outputs compared")
     # the loop's own numbers beyond the metrics, for the record
     res = {k: v for k, v in ctx.result.items()

@@ -39,23 +39,27 @@ def numbers(per_frame: Sequence[Dict[str, float]]) -> Dict[str, float]:
             "diff_samples": sum(g["diff"] for g in per_frame)}
 
 
-def reference(cfg: dict, data: bytes, precision: str = "") -> np.ndarray:
+def reference(cfg: dict, data: bytes, precision: str = "",
+              lanes: Optional[R.Lanes] = None) -> np.ndarray:
     rc = cfg["reference"]
-    return R.decode(data, rc["idct"], rc["chroma"], precision)
+    return R.decode(data, rc["idct"], rc["chroma"], precision, lanes)
 
 
 def compare(cfg: dict, frame: Callable[[int], bytes],
             sample: List[Tuple[int, np.ndarray]], expected: int,
-            control: Optional[str] = None) -> Dict[str, Tuple[float, float]]:
+            control: Optional[str] = None,
+            lanes: Callable[[int], Optional[R.Lanes]] = lambda j: None
+            ) -> Dict[str, Tuple[float, float]]:
     """``{number: (value, limit)}`` over the ``sample`` of ``(pool index,
     program RGB)``; ``expected`` is the size the sample should have.
     ``control`` puts the reference at that lower precision in the
-    program's place (the program's RGB is then not read)."""
+    program's place (the program's RGB is then not read). ``lanes(j)``
+    gives the frame source's hints for frame ``j``, if any."""
     per_frame = []
     for j, rgb in sample:
-        data = frame(j)
-        ref = reference(cfg, data)
-        got = reference(cfg, data, control) if control else rgb
+        data, hint = frame(j), lanes(j)
+        ref = reference(cfg, data, lanes=hint)
+        got = reference(cfg, data, control, hint) if control else rgb
         per_frame.append(gaps(got, ref))
     got = numbers(per_frame)
     limits = cfg["limits"]

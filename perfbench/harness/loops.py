@@ -32,6 +32,8 @@ import numpy as np
 
 from ..inputs import frames as F
 
+STAGE_BYTES = 2 * 10**9  # host memory a resident loop stages at most at once
+
 
 class Reservoir:
     """A uniform sample of ``k`` of the items offered, drawn from a seed."""
@@ -67,7 +69,7 @@ class Loop:
         self.result: dict = {}
 
     def frame(self, j: int) -> bytes:
-        return F.frame(self.src, self.seed, j)
+        return self.src.frame(self.seed, j)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -178,12 +180,23 @@ class ResidentLoop(Loop):
         if P % B:
             raise ValueError(f"pool of {P} frames in batches of {B}")
         self.dec = Decoder(device=self.device, **self.cfg["decoder"])
-        # The widest row any frame can need: frames are drawn from the base
-        # images' segments.
-        words = max(Decoder(device=self.device).prepare(b).rows.shape[1]
-                    for b in F.base_jpegs(self.cfg))
+        if isinstance(self.src, F.RunsOfEight):
+            # The widest row any frame can need: these frames are drawn from
+            # the base images' runs of segments.
+            words = max(Decoder(device=self.device).prepare(b).rows.shape[1]
+                        for b in F.base_jpegs(self.cfg))
+            chunk = 32
+        else:
+            # The widest row of the pool's own frames, by the program's
+            # measure of the frame whose longest segment is longest; as many
+            # frames a chunk as STAGE_BYTES holds at the program's row
+            # capacity.
+            j = max(range(P), key=lambda j: self.src.row_bytes(self.seed, j))
+            widest = self.dec.prepare(self.frame(j)).rows
+            words = widest.shape[1]
+            chunk = max(1, min(32, STAGE_BYTES // widest.nbytes))
+            del widest
         nseg = self.src.segments
-        chunk = 32
         host: Optional[np.ndarray] = None
         self.rows = torch.empty((P, nseg, words), dtype=torch.int32,
                                 device=self.device)
@@ -195,7 +208,7 @@ class ResidentLoop(Loop):
                     nonlocal host
                     if w > words:
                         raise ValueError(f"a frame needs {w} words a row, "
-                                         f"more than the bases' {words}")
+                                         f"more than the {words} staged")
                     if host is None:
                         host = np.zeros((chunk, r, words), np.uint32)
                     return host[k]

@@ -48,12 +48,14 @@ class BitWriter:
         self.out = bytearray()
         self.acc = 0
         self.nbits = 0
+        self.bits = 0  # bits put so far: the position in the destuffed scan
 
     def put(self, code: int, length: int) -> None:
         if length == 0:
             return
         self.acc = (self.acc << length) | (code & ((1 << length) - 1))
         self.nbits += length
+        self.bits += length
         while self.nbits >= 8:
             self.nbits -= 8
             b = (self.acc >> self.nbits) & 0xFF
@@ -73,6 +75,22 @@ class BitWriter:
         self.out += bytes([0xFF, marker])
 
 
+def _magnitude(v: int) -> Tuple[int, int]:
+    """T.81's (size, bits) of a coefficient or DC difference ``v``."""
+    if v == 0:
+        return 0, 0
+    s = abs(v).bit_length()
+    return s, v if v > 0 else v + (1 << s) - 1
+
+
+def dc_symbol(diff: int, dc_map: Dict[int, Tuple[int, int]]) -> Tuple[int, int]:
+    """A DC difference's whole symbol, its Huffman code followed by its
+    magnitude bits, as ``(bits, length)``."""
+    s, bits = _magnitude(diff)
+    code, ln = dc_map[s]
+    return (code << s) | bits, ln + s
+
+
 def _encode_block(
     bw: BitWriter,
     block: np.ndarray,  # 8x8 float, already level-shifted
@@ -86,19 +104,7 @@ def _encode_block(
     zz = np.zeros(64, dtype=np.int64)
     zz[ZIGZAG] = q.reshape(-1)
 
-    def magnitude(v: int) -> Tuple[int, int]:
-        if v == 0:
-            return 0, 0
-        a = abs(v)
-        s = a.bit_length()
-        bits = v if v > 0 else v + (1 << s) - 1
-        return s, bits
-
-    diff = int(zz[0]) - dc_pred
-    s, bits = magnitude(diff)
-    code, ln = dc_map[s]
-    bw.put(code, ln)
-    bw.put(bits, s)
+    bw.put(*dc_symbol(int(zz[0]) - dc_pred, dc_map))
 
     run = 0
     last_nz = 0
@@ -113,7 +119,7 @@ def _encode_block(
             code, ln = ac_map[0xF0]  # ZRL
             bw.put(code, ln)
             run -= 16
-        s, bits = magnitude(int(zz[k]))
+        s, bits = _magnitude(int(zz[k]))
         code, ln = ac_map[(run << 4) | s]
         bw.put(code, ln)
         bw.put(bits, s)
@@ -145,7 +151,20 @@ def rgb_to_ycbcr(rgb: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([y, cb, cr], axis=-1).round(), 0, 255)
 
 
-def encode(
+def encode(rgb: np.ndarray, **kw) -> bytes:
+    """Encode an ``[H, W, 3]`` (or ``[H, W]`` grayscale) u8 image; the
+    keywords are :func:`encode_indexed`'s."""
+    return encode_indexed(rgb, **kw)[0]
+
+
+def dc_maps(ncomp: int) -> List[Dict[int, Tuple[int, int]]]:
+    """Each component's DC code map: the Annex K luminance table for the
+    first, the chrominance table for the others."""
+    return [_encode_map(DEFAULT_TABLES[(0, 0 if ci == 0 else 1)])
+            for ci in range(ncomp)]
+
+
+def encode_indexed(
     rgb: np.ndarray,
     *,
     sampling: str = "422",
@@ -153,12 +172,23 @@ def encode(
     restart_interval_mcus: Optional[int] = 1,
     app0: bool = True,
     emit_dht: bool = True,
-) -> bytes:
-    """Encode an ``[H, W, 3]`` (or ``[H, W]`` grayscale) u8 image.
+) -> Tuple[bytes, Dict[str, np.ndarray]]:
+    """Encode an ``[H, W, 3]`` (or ``[H, W]`` grayscale) u8 image, and
+    index its scan.
 
     ``restart_interval_mcus=None`` omits DRI entirely (one giant interval).
     ``emit_dht=False`` produces an MJPEG-style stream relying on the Annex K
-    defaults.
+    defaults. The index, int64 arrays whose bit positions count in the
+    destuffed scan (restart markers and stuffed zero bytes taken out):
+
+    * ``mcu_bit`` ``[M + 1]``: each MCU's first bit; last, the bit after the
+      last MCU, before the final padding;
+    * ``dc_bit``, ``dc_len`` ``[M, C]``: where the DC symbol (code and
+      magnitude bits) of each component's first data unit in the MCU
+      starts, and its length in bits;
+    * ``dc_first``, ``dc_last`` ``[M, C]``: the DC value of each
+      component's first and last data unit in the MCU (the last is the
+      predictor the MCU leaves).
     """
     if sampling not in SAMPLING_PRESETS:
         raise ValueError(f"unknown sampling {sampling}")
@@ -198,8 +228,7 @@ def encode(
             padded = padded.reshape(ph // fy, fy, pw // fx, fx).mean(axis=(1, 3))
         comp_planes.append(np.round(padded))
 
-    dc_maps = [_encode_map(DEFAULT_TABLES[(0, 0 if ci == 0 else 1)])
-               for ci in range(ncomp)]
+    dcm = dc_maps(ncomp)
     ac_maps = [_encode_map(DEFAULT_TABLES[(1, 0 if ci == 0 else 1)])
                for ci in range(ncomp)]
 
@@ -210,8 +239,12 @@ def encode(
     total_mcus = wm * hm
     rst = 0
     mcus_in_interval = 0
+    index: Dict[str, list] = {k: [] for k in (
+        "mcu_bit", "dc_bit", "dc_len", "dc_first", "dc_last")}
     for m in range(total_mcus):
         mx, my = m % wm, m // wm
+        index["mcu_bit"].append(bw.bits)
+        first = []
         for ci, (sh, sv) in enumerate(samp):
             plane = comp_planes[ci]
             qt = qtabs[comp_q[ci]]
@@ -220,15 +253,23 @@ def encode(
                     y0 = (my * sv + v) * 8
                     x0 = (mx * sh + hh) * 8
                     block = plane[y0 : y0 + 8, x0 : x0 + 8] - 128.0
+                    pred, at = dc_pred[ci], bw.bits
                     dc_pred[ci] = _encode_block(
-                        bw, block, qt, dc_pred[ci], dc_maps[ci], ac_maps[ci]
+                        bw, block, qt, dc_pred[ci], dcm[ci], ac_maps[ci]
                     )
+                    if v == 0 and hh == 0:
+                        first.append((at, dc_symbol(dc_pred[ci] - pred,
+                                                    dcm[ci])[1], dc_pred[ci]))
+        for key, vals in zip(("dc_bit", "dc_len", "dc_first"), zip(*first)):
+            index[key].append(vals)
+        index["dc_last"].append(list(dc_pred))
         mcus_in_interval += 1
         if ri and mcus_in_interval == ri and m != total_mcus - 1:
             bw.raw_marker(0xD0 + rst)
             rst = (rst + 1) % 8
             dc_pred = [0] * ncomp
             mcus_in_interval = 0
+    index["mcu_bit"].append(bw.bits)
     bw.pad_to_byte()
     scan = bytes(bw.out)
 
@@ -264,4 +305,4 @@ def encode(
     out += b"\xFF\xDA" + struct.pack(">H", 2 + len(sos)) + sos
     out += scan
     out += b"\xFF\xD9"
-    return bytes(out)
+    return bytes(out), {k: np.asarray(v, np.int64) for k, v in index.items()}

@@ -5,8 +5,12 @@ It imports nothing of the program under test and takes nothing that the
 program made: it parses the frame's bytes itself, destuffs and splits the
 scan at its restart markers, and entropy-decodes every restart segment in
 lockstep (one numpy lane a segment: each segment restarts the DC
-predictors, so segments are independent). Then, by the configuration's
-``idct``:
+predictors, so segments are independent). A scan with no restart markers
+is one DC chain; given :class:`Lanes`, the hints of the frame's maker, it
+is decoded in lanes all the same, each lane from a bit and the DC
+predictors the hints name, and each lane has to stop exactly where the
+next starts, with the predictors that lane assumed, or the decode fails.
+Then, by the configuration's ``idct``:
 
 * ``float``: dequantize and inverse-DCT as one ``[64, 64]`` float32
   operator a data unit (the DCT basis times the quantizer), ``+ 128.5``,
@@ -30,7 +34,7 @@ precision of libjpeg's ``jidctfst``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +44,19 @@ from .annex_k import DEFAULT_TABLES, NATURAL, canonical_codes
 
 class JpegError(ValueError):
     """The bytes are not a baseline JPEG this reference decodes."""
+
+
+@dataclass
+class Lanes:
+    """How to decode a restart-less scan in lanes: lane ``i`` decodes
+    ``mcus[i]`` MCUs from bit ``bits[i]`` of the destuffed scan with the DC
+    predictors ``preds[i]`` (one a component), and has to stop at bit
+    ``bits[i + 1]`` with the predictors ``preds[i + 1]``; ``bits[-1]`` is
+    the end of the last MCU, where only the padding is left."""
+
+    bits: np.ndarray  # [lanes + 1] int64
+    mcus: np.ndarray  # [lanes] int64
+    preds: np.ndarray  # [lanes + 1, components] int64
 
 
 @dataclass
@@ -201,77 +218,116 @@ def _extend(v: np.ndarray, s: np.ndarray) -> np.ndarray:
     return np.where(neg, v - (np.int64(1) << s) + 1, v)
 
 
-def entropy_decode(f: Frame) -> np.ndarray:
+def entropy_decode(f: Frame, lanes: Optional[Lanes] = None) -> np.ndarray:
     """Quantized coefficients ``[total_mcus, data units, 64]`` int64 in
-    zigzag order, MCUs in raster order."""
+    zigzag order, MCUs in raster order; a restart-less scan in the
+    ``lanes`` given, if any."""
     total = f.width_mcus * f.height_mcus
-    ri = f.ri or total
-    nseg = -(-total // ri)
     buf, starts, lens = split_segments(f.scan)
-    if len(starts) != nseg:
-        raise JpegError(f"{len(starts)} restart segments, expected {nseg}")
+    ncomp = len(f.comps)
+    if lanes is None:
+        ri = f.ri or total
+        nseg = -(-total // ri)
+        if len(starts) != nseg:
+            raise JpegError(f"{len(starts)} restart segments, expected "
+                            f"{nseg}")
+        mcus = np.full(nseg, ri, np.int64)
+        mcus[-1] = total - ri * (nseg - 1)
+        pos = 8 * starts  # each lane's next bit in the destuffed scan
+        pred = np.zeros((ncomp, nseg), np.int64)
+    else:
+        mcus = np.asarray(lanes.mcus, np.int64)
+        hint_bits = np.asarray(lanes.bits, np.int64)
+        hint_preds = np.asarray(lanes.preds, np.int64)
+        if f.ri or len(starts) != 1:
+            raise JpegError("lanes given for a scan with restart markers")
+        if (len(hint_bits) != len(mcus) + 1
+                or hint_preds.shape != (len(mcus) + 1, ncomp)
+                or mcus.sum() != total or (mcus < 1).any()
+                or hint_bits[0] != 0 or hint_preds[0].any()):
+            raise JpegError("the lanes do not cover the scan from its start")
+        pos = hint_bits[:-1].copy()
+        pred = hint_preds[:-1].T.copy()
+    nlane = len(mcus)
     du = f.du_comps
     ndu = len(du)
-    mcus = np.full(nseg, ri, np.int64)
-    mcus[-1] = total - ri * (nseg - 1)
     tables = {}
     for c, (_, _, _, td, ta) in enumerate(f.comps):
         tables[c] = (_lookup(*f.htables[(0, td)]), _lookup(*f.htables[(1, ta)]))
-    coef = np.zeros((nseg, ri * ndu, 64), np.int64)
-    bitpos = np.zeros(nseg, np.int64)
+    longest = int(mcus.max())
+    coef = np.zeros((nlane, longest * ndu, 64), np.int64)
     bufi = buf.astype(np.int64)
 
-    def window(lanes):
+    def window(sel):
         """The next 32 bits of each lane, MSB first (at least 25 valid)."""
-        byte = starts[lanes] + (bitpos[lanes] >> 3)
+        byte = pos[sel] >> 3
+        if len(byte) and byte.max() + 3 >= len(bufi):
+            raise JpegError("a lane reads past the end of the scan")
         w = ((bufi[byte] << 24) | (bufi[byte + 1] << 16)
              | (bufi[byte + 2] << 8) | bufi[byte + 3])
-        return (w << (bitpos[lanes] & 7)) & 0xFFFFFFFF
+        return (w << (pos[sel] & 7)) & 0xFFFFFFFF
 
-    def code(lanes, table):
+    def code(sel, table):
         sym_t, len_t = table
-        w = window(lanes) >> 16
+        w = window(sel) >> 16
         length = len_t[w]
         if not length.all():
             raise JpegError("invalid Huffman code")
-        bitpos[lanes] += length
+        pos[sel] += length
         return sym_t[w]
 
-    def bits(lanes, s):
-        v = window(lanes) >> (32 - s)
+    def bits(sel, s):
+        v = window(sel) >> (32 - s)
         v = np.where(s > 0, v, 0)
-        bitpos[lanes] += s
+        pos[sel] += s
         return _extend(v, s)
 
-    for m in range(ri):
+    for m in range(longest):
         lanes_m = np.flatnonzero(mcus > m)
-        pred = np.zeros((len(f.comps), nseg), np.int64) if m == 0 else pred
         for b, c in enumerate(du):
             dc_t, ac_t = tables[c]
             k = m * ndu + b
             s = code(lanes_m, dc_t)
             pred[c, lanes_m] += bits(lanes_m, s)
             coef[lanes_m, k, 0] = pred[c, lanes_m]
-            lanes = lanes_m
-            pos = np.ones(len(lanes), np.int64)
-            while len(lanes):
-                rs = code(lanes, ac_t)
+            live = lanes_m
+            at0 = np.ones(len(live), np.int64)
+            while len(live):
+                rs = code(live, ac_t)
                 r, s = rs >> 4, rs & 15
-                val = bits(lanes, s)
-                at = pos + r
+                val = bits(live, s)
+                at = at0 + r
                 put = s > 0
                 if (at[put] > 63).any():
                     raise JpegError("AC run past the end of a block")
-                coef[lanes[put], k, at[put]] = val[put]
+                coef[live[put], k, at[put]] = val[put]
                 if ((s == 0) & (r != 0) & (r != 15)).any():
                     raise JpegError("invalid AC symbol")
-                pos = at + 1
-                go = (rs != 0) & (pos < 64)
-                lanes, pos = lanes[go], pos[go]
-    if (bitpos > 8 * lens).any():
-        raise JpegError("a segment reads past its end")
-    flat = coef.reshape(nseg * ri, ndu, 64)
-    return flat[:total]
+                at0 = at + 1
+                go = (rs != 0) & (at0 < 64)
+                live, at0 = live[go], at0[go]
+    if lanes is None:
+        if (pos > 8 * (starts + lens)).any():
+            raise JpegError("a segment reads past its end")
+    else:
+        _check_lanes(pos, pred, hint_bits, hint_preds, buf[:lens[0]])
+    return coef.reshape(nlane, longest, ndu, 64)[
+        np.arange(longest)[None] < mcus[:, None]]
+
+
+def _check_lanes(pos, pred, bits, preds, scan) -> None:
+    """Each lane stopped where the next starts, leaving the predictors the
+    next assumed, and after the last only 1-bits pad the scan's last
+    byte."""
+    if (pos != bits[1:]).any():
+        raise JpegError(f"lane {int(np.argmax(pos != bits[1:]))} did not "
+                        "stop where the next starts")
+    if (pred.T != preds[1:]).any():
+        raise JpegError("a lane left other DC predictors than the next "
+                        "assumed")
+    rest = np.unpackbits(scan)[bits[-1]:]
+    if bits[-1] > 8 * len(scan) or len(rest) >= 8 or not rest.all():
+        raise JpegError("the scan goes on past its last MCU")
 
 
 def _dct_basis() -> np.ndarray:
@@ -432,12 +488,13 @@ def ycbcr_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode(data: bytes, idct: str = "float", chroma: str = "nearest",
-           precision: str = "") -> np.ndarray:
+           precision: str = "", lanes: Optional[Lanes] = None) -> np.ndarray:
     """JPEG bytes to ``[H, W, 3]`` u8 RGB. ``idct`` is ``float`` or
     ``islow``, ``chroma`` ``nearest`` or ``fancy``; ``precision`` names a
-    control's lower precision (``bf16`` for float, ``int8`` for islow)."""
+    control's lower precision (``bf16`` for float, ``int8`` for islow);
+    ``lanes``, the hints to decode a restart-less scan in lanes."""
     f = parse(data)
-    coef = entropy_decode(f)
+    coef = entropy_decode(f, lanes)
     quant = np.stack([f.qtables[f.comps[c][2]] for c in f.du_comps])
     if idct == "float":
         pix = idct_float(coef, quant, precision or "f32")

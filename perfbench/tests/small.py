@@ -17,7 +17,7 @@ CELLS = ("cam1080_420_exact_fancy.oneshot", "uvc4k_422.resident",
          "cam1080_420_exact_fancy.resident")
 
 
-def run_small(cell, capsys, seed=2**31 + 77, trace=0, seconds=0.4,
+def run_small(cell, capsys, seed=2**31 + 77, trace=0, seconds=1.0,
               root=bench.os.path.dirname(bench.PERFBENCH)):
     """One run of ``cell`` at the small size on the CPU; the result line
     (a dict) and the return code."""

@@ -175,7 +175,7 @@ def test_scan_bytes_of_a_drawn_frame_count_its_segments_data():
     from .test_perfbench_inputs import small_config
 
     src = F.source(small_config("uvc4k_422"))
-    data = F.frame(src, 11, 0)
+    data = src.frame(11, 0)
     body = data[len(src.header):-2]
     stuffed = sum(1 for a, b in zip(body, body[1:]) if a == 0xFF and b == 0)
     assert roofline.scan_bytes(data) == \

@@ -79,7 +79,7 @@ def test_the_control_fails_and_the_reference_passes(name):
     sample = [(j, None) for j in range(4)]
 
     def frame(j):
-        return F.frame(src, 13, j)
+        return src.frame(13, j)
 
     ctl = check.compare(cfg, frame, sample, 4, control=cfg["reference"][
         "control"])

@@ -37,9 +37,10 @@ def main(argv=None) -> int:
     k = traffic["check_expected"]
     for seed in args.seeds:
         idx = F.rng(seed, 5).choice(traffic["pool_frames"], k, replace=False)
-        got = check.compare(cfg, lambda j: F.frame(src, seed, j),
+        got = check.compare(cfg, lambda j: src.frame(seed, j),
                             [(int(j), None) for j in idx], k,
-                            control=cfg["reference"]["control"])
+                            control=cfg["reference"]["control"],
+                            lanes=lambda j: src.lanes(seed, j))
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "control": cfg["reference"]["control"],
                           "numbers": {n: {"value": v, "limit": lim,
