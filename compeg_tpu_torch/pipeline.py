@@ -49,7 +49,8 @@ from .ops import entropy as E
 from .ops import fused as F
 from .ops import idct as D
 from .ops import int_idct as I
-from .profiling import PINNED_READBACKS, count, stage_timer
+from .profiling import (LANES_LAUNCHED, MCUS_LAUNCHED, PACK_PAD_BYTES,
+                        PINNED_READBACKS, count, stage_timer)
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -347,6 +348,8 @@ class Decoder:
             self.check_budget(img, 1)
             with stage_timer("preprocess"):
                 rows, packer = self._pack(img, alloc)
+            count(PACK_PAD_BYTES, (rows.shape[0] - nseg) * rows.shape[1]
+                  * rows.itemsize)
             pf = self.frame_constants(img, consts)
             pf.rows, pf.packer = rows, packer
             return pf
@@ -424,6 +427,9 @@ class Decoder:
         the JAX package's, frame by frame with one K1 launch each."""
         with stage_timer("launch"):  # the host's enqueueing of the work
             g = pf.geom
+            frames = rows.shape[0] if rows.dim() == 3 else 1
+            count(LANES_LAUNCHED, pf.nseg * frames)
+            count(MCUS_LAUNCHED, g.total_mcus * frames)
             if not self.fused:
                 def staged(r):
                     return decode_frame_device(

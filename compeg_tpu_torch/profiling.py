@@ -9,6 +9,7 @@ the same facility for this engine plus device-side timing on a CUDA card:
     with stage_timer("preprocess"):  # a span: counted always, and traced
         ...                          # while a torch.profiler session records
     count(PINNED_READBACKS)         # an event with no span of its own
+    count(LANES_LAUNCHED, n)        # an amount with no span of its own
     log_stats()                     # dump accumulated stats and counts
 
     ms, rows = trace_device_ms(lambda: dec.decode_prepared(pf))
@@ -66,6 +67,16 @@ _lock = threading.Lock()  # spans end on several threads at once
 # count of new page-locked blocks (:func:`host_allocs`) gives the cache's
 # hit share, 1 - new blocks / pinned readbacks.
 PINNED_READBACKS = "readback_pinned"
+# What ``Decoder.decode_rows`` asks of the card, counted once a call: the
+# decode lanes it launches (one a restart segment of each frame) and the
+# MCUs those lanes decode between them. Their quotient is the serial depth
+# of one lane, in MCUs.
+LANES_LAUNCHED = "lanes_launched"
+MCUS_LAUNCHED = "mcus_launched"
+# The bytes of zero rows that ``Decoder.prepare`` packs past a frame's last
+# segment (its buffer holds ``row_capacity(nseg)`` rows), counted once a
+# prepare.
+PACK_PAD_BYTES = "pack_pad_bytes"
 
 
 class stage_timer:
@@ -103,10 +114,11 @@ class stage_timer:
                 s.max_s = dt
 
 
-def count(name: str) -> None:
-    """Count one event of ``name`` that has no span of its own."""
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the count of ``name``: events, or an amount, that have
+    no span of their own."""
     with _lock:
-        _counts[name] = _counts.get(name, 0) + 1
+        _counts[name] = _counts.get(name, 0) + n
 
 
 def get_stats() -> Dict[str, StageStats]:
