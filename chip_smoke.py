@@ -56,7 +56,13 @@ trace_sharded with one band, bench_scaling at one rank): each JSON line
 must parse, bench's fields be filled, the resident decode's device busy
 time lie within [0.8, 1.5] x K2's kernel time and under its event span,
 the stream's idle share in [0, 1] and the banded pixels equal the
-unbanded ones. Any failure exits non-zero. The default
+unbanded ones. Then lanes inside a restart segment: 16 restart-less
+1080p 4:2:0 q95 frames from the port's encoder, one alone and all as a
+zero-padded batch, where the lane index L (ops/lanes.py) must equal its
+plain serial twin bit for bit, K2, K2x and K3 on its lanes must equal their
+one-lane launch and their plain twins on the same lanes, and
+Decoder.decode_rows must launch L, K3 and E once each and equal its decode
+with one lane a segment. Any failure exits non-zero. The default
 decode of the 4K frame must equal golden's byte for byte (its sha256), the
 small rasters must take both the
 16-byte and the word-wise store of the RGBA kernels and the 16-byte, 8-byte
@@ -77,9 +83,11 @@ validation tool computes its own with the port's golden decoder.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -88,6 +96,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -108,6 +117,7 @@ FUZZ = 40  # scan-byte mutations of a small stream (phase e)
 # outside the tensor cores. Integer operations are held to the same rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+LANE_BATCH = 16  # restart-less 1080p frames of the lanes' batch (phase n)
 
 
 def log(*args):
@@ -155,6 +165,23 @@ def wall_ms(fn, reps=REPS):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def lane_case(seed: int):
+    """A restart-less 1080p 4:2:0 q95 frame of tools/exp_lanes.py's picture
+    ``seed`` and its plain lane table for lanes of one MCU (``[8160, 4]``
+    int32 numpy), both made on the host."""
+    import torch
+
+    from compeg_tpu_torch.ops import lanes as LN
+    from compeg_tpu_torch.pipeline import Decoder
+    from compeg_tpu_torch.tools import exp_lanes
+
+    data = exp_lanes.encode((seed, None))
+    pf = Decoder(device="cpu", **exp_lanes.KNOBS).prepare(data)
+    rows = torch.from_numpy(pf.rows[:pf.nseg].view(np.int32))
+    return data, LN.lane_index_reference(rows, pf.nseg, pf.tables, pf.geom,
+                                         1).numpy()
 
 
 def main() -> int:
@@ -1789,6 +1816,150 @@ def main() -> int:
         f"unbanded {res_m['trace_sharded']['ratio']:.3f}; launches "
         f"{tools_launches}")
 
+    # ---- (n) lanes inside a restart-less segment --------------------------
+    # 1080p 4:2:0 q95 frames with no restart markers, as cv2.imwrite writes
+    # them, from the port's encoder (tools/exp_lanes.py's pictures): one
+    # frame at its own row width, and LANE_BATCH frames that differ as one
+    # [B, 1, W] batch padded with zero words to the widest, as a resident
+    # pool holds them. Kernel L's table must equal the plain serial decode's
+    # bit for bit; K2, K2x and K3 (integer and float) on its lanes must equal
+    # their one-lane launch and their plain twins on the same lanes (K2 and
+    # K3 float within 1: the f32 IDCT sums in another order); and
+    # Decoder.decode_rows, driven with the counts zeroed, must launch L, K3
+    # and E once each and equal its decode with one lane a segment.
+    t_n = time.perf_counter()
+    from compeg_tpu_torch.ops import lanes as LN
+
+    with ProcessPoolExecutor(
+            8, mp_context=multiprocessing.get_context("spawn")) as ex:
+        lane_cases = list(ex.map(lane_case, range(LANE_BATCH)))
+    dec_lx = Decoder(exact_idct=True, fancy_upsampling=True)
+    dec_lf = Decoder()
+    pfs_n = [dec_lx.prepare(d) for d, _ in lane_cases]
+    pf_n, pf_nf = pfs_n[0], dec_lf.prepare(lane_cases[0][0])
+    g_n, tab_n = pf_n.geom, pf_n.tables
+    require(pf_n.nseg == 1 and g_n.total_mcus == 8160,
+            f"the 1080p frame has {pf_n.nseg} segments, {g_n.total_mcus} "
+            "MCUs: not one restart-less segment")
+    width_n = max(p.rows.shape[1] for p in pfs_n)
+    batch_n = torch.zeros((LANE_BATCH, 1, width_n), dtype=torch.int32)
+    for b, p in enumerate(pfs_n):
+        batch_n[b, :, :p.rows.shape[1]] = torch.from_numpy(
+            p.rows[:1].view(np.int32))
+    one_n, batch_n = dec_lx.upload(pf_n), batch_n.cuda()
+    plain_tab = torch.from_numpy(np.stack([t for _, t in lane_cases]))
+    log(f"(n) {LANE_BATCH} restart-less 1080p q95 frames, "
+        f"{min(map(len, (d for d, _ in lane_cases)))}-"
+        f"{max(map(len, (d for d, _ in lane_cases)))} bytes, encoded with "
+        f"their plain lane tables in {time.perf_counter() - t_n:.1f} s")
+    for L in sorted({LN.LANE_MCUS, 4}):
+        for tag, rows_n, want in (("one frame", one_n, plain_tab[0]),
+                                  (f"batch of {LANE_BATCH}", batch_n,
+                                   plain_tab)):
+            got = LN.lane_index(rows_n, 1, tab_n, g_n, L).table
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu(), want[..., ::L, :]),
+                    f"kernel L's table of lanes of {L} MCUs differs from "
+                    f"the plain table ({tag})")
+    log(f"(n) kernel L == the plain lane table bit for bit, one frame and "
+        f"the batch, lanes of {sorted({LN.LANE_MCUS, 4})} MCUs")
+    lanes_1 = LN.lane_index(one_n, 1, tab_n, g_n, LN.LANE_MCUS)
+    lanes_b = LN.lane_index(batch_n, 1, tab_n, g_n, LN.LANE_MCUS)
+    lane_kernels = {
+        "K2": (F.fused_decode_rgba, F.fused_decode_rgba_reference, pf_nf),
+        "K2x": (F.fused_decode_rgba_exact,
+                F.fused_decode_rgba_exact_reference, pf_n),
+        "K3 int": (functools.partial(F.fused_decode_planes, exact=True),
+                   functools.partial(F.fused_decode_planes_reference,
+                                     exact=True), pf_n),
+        "K3 float": (F.fused_decode_planes, F.fused_decode_planes_reference,
+                     pf_nf),
+    }
+    lane_err = 0
+    for name, (kernel, twin, p) in lane_kernels.items():
+        def outs(x):
+            return x if isinstance(x, tuple) else (x,)
+
+        for tag, rows_n, lanes in (("one frame", one_n, lanes_1),
+                                   (f"batch of {LANE_BATCH}", batch_n,
+                                    lanes_b)):
+            got = outs(kernel(rows_n, 1, p.tables, p.op, g_n, lanes=lanes))
+            whole = outs(kernel(rows_n, 1, p.tables, p.op, g_n))
+            frames_n = ([(rows_n, lanes)] if rows_n.dim() == 2 else
+                        [(r, lanes._replace(table=lanes.table[b]))
+                         for b, r in enumerate(rows_n)])
+            plains = [outs(twin(r, 1, p.tables, p.op, g_n, lanes=ln))
+                      for r, ln in frames_n]
+            torch.cuda.synchronize()
+            for i, (a, w) in enumerate(zip(got, whole)):
+                require(torch.equal(a, w), f"{name} on lanes differs from "
+                        f"its one-lane launch ({tag}, output {i})")
+                want = torch.stack([pl[i] for pl in plains]) \
+                    if rows_n.dim() == 3 else plains[0][i]
+                err = int((a.view(torch.uint8).int()
+                           - want.view(torch.uint8).int()).abs().max())
+                require(err == 0 or (err <= 1 and name in ("K2", "K3 float")),
+                        f"{name} on lanes: max |diff| {err} from its plain "
+                        f"twin on the same lanes ({tag}, output {i})")
+                lane_err = max(lane_err, err)
+    log(f"(n) K2, K2x, K3 integer and float on lanes of {LN.LANE_MCUS} "
+        f"MCU(s) == their one-lane launch, and their plain twins on the same "
+        f"lanes (max |diff| {lane_err}), one frame and the batch")
+    lane_launches = {}
+    for tag, rows_n in (("one frame", one_n),
+                        (f"batch of {LANE_BATCH}", batch_n)):
+        frames_n = 1 if rows_n.dim() == 2 else rows_n.shape[0]
+        before = profiling.get_counts()
+        got, counts = drive(lambda: dec_lx.decode_rows(pf_n, rows_n))
+        after = profiling.get_counts()
+        only(counts, "lanes", f"Decoder.decode_rows, {tag}",
+             also=("planes", "epilogue"))
+        require(counts["lanes"] == 1, f"decode_rows, {tag}: {counts}")
+        for k, v in counts.items():
+            lane_launches[k] = lane_launches.get(k, 0) + v
+
+        def moved(name):
+            return after.get(name, 0) - before.get(name, 0)
+
+        require(moved(profiling.SPLIT_SEGMENTS) == frames_n
+                and moved(profiling.LANES_LAUNCHED)
+                == moved(profiling.MCUS_LAUNCHED) // LN.LANE_MCUS
+                == 8160 * frames_n // LN.LANE_MCUS,
+                f"decode_rows, {tag}: split_segments "
+                f"{moved(profiling.SPLIT_SEGMENTS)}, lanes "
+                f"{moved(profiling.LANES_LAUNCHED)}, MCUs "
+                f"{moved(profiling.MCUS_LAUNCHED)}")
+        split, LN.SPLIT_MCUS = LN.SPLIT_MCUS, ((1, 10**9),)  # one lane
+        try:
+            whole = dec_lx.decode_rows(pf_n, rows_n)
+        finally:
+            LN.SPLIT_MCUS = split
+        torch.cuda.synchronize()
+        require(torch.equal(got, whole), f"decode_rows, {tag}: the lanes "
+                "differ from one lane a segment")
+    oneshot = dec_lx.decode(lane_cases[0][0])
+    require(np.array_equal(np.asarray(oneshot), rgb(
+        dec_lx.decode_rows(pf_n, one_n))),
+        "Decoder.decode of the restart-less frame differs from decode_rows")
+    log(f"(n) Decoder.decode_rows launches L, K3 and E once each, one frame "
+        f"and the batch, and equals one lane a segment; Decoder.decode "
+        f"equals it; counts {lane_launches}")
+    ms["L"] = cuda_ms(lambda: LN.lane_index(one_n, 1, tab_n, g_n,
+                                            LN.LANE_MCUS))
+    batch_ms["L"] = cuda_ms(lambda: LN.lane_index(
+        batch_n, 1, tab_n, g_n, LN.LANE_MCUS)) / LANE_BATCH
+    lane_k3_ms = [cuda_ms(lambda: F.fused_decode_planes(
+        r, 1, tab_n, pf_n.op, g_n, exact=True, lanes=ln)) / n
+        for r, ln, n in ((one_n, lanes_1, 1),
+                         (batch_n, lanes_b, LANE_BATCH))]
+    plain["L"] = wall_ms(lambda: LN.lane_index_reference(
+        one_n.cpu(), 1, tab_n, g_n, LN.LANE_MCUS), reps=1)
+    log(f"(n) kernel L {ms['L']:.4f} ms a frame alone, {batch_ms['L']:.4f} "
+        f"ms a frame of {LANE_BATCH}; K3 integer on its lanes "
+        f"{lane_k3_ms[0]:.4f} / {lane_k3_ms[1]:.4f}; the plain table "
+        f"{plain['L']:.0f} ms; on {card}; phase in "
+        f"{time.perf_counter() - t_n:.1f} s")
+
     # ---- the kernels line ------------------------------------------------------
     # bound_ms: the larger of bytes (inputs read once, outputs written once)
     # over the memory rate and operations over the float32 rate. Operations
@@ -1826,6 +1997,10 @@ def main() -> int:
                                  colour_ops),
         "E fancy 4:2:0": bound(sum(p.numel() for p in planes420) + px * 4,
                                colour_ops + 12 * px),
+        # L: phase (n)'s frame's row and the tables read once, the lane
+        # table (16 bytes a lane) written once.
+        "L": bound(one_n.numel() * 4 + tab_n.packed.numel() * 4
+                   + lanes_1.table.numel() * 4, 0),
     }
     for k in SCALES:
         zlen = {1: 1, 2: 5, 4: 25}[k]
@@ -1846,7 +2021,7 @@ def main() -> int:
 
     launch_sets = [launches, batch_launches, {"stream": stream_launches},
                    staged_batch_launches, capture_launches, banded_launches,
-                   tools_launches]
+                   tools_launches, lane_launches]
 
     def relayout_entry(name, key, replaces, probe_name, **extra):
         res = next(r for r in tool if r["probe"] == probe_name)
@@ -1901,6 +2076,14 @@ def main() -> int:
                   plain_ms_by_k={k: plain[f"K2s k={k}"] for k in SCALES},
                   bound_ms_by_k={k: bounds[f"K2s k={k}"]["bound_ms"]
                                  for k in SCALES}),
+            # ms, plain_ms and bound_ms at phase (n)'s 1080p q95 frame
+            entry("lane_sync_kernel, lane_round_kernel, lane_fix_kernel and "
+                  "lane_index_kernel (L)", None, ("lanes",), 0, "L",
+                  replaces_what="no TPU kernel: compeg_tpu decodes one "
+                  "restart segment a lane",
+                  batched_ms_per_frame=batch_ms["L"],
+                  k3_int_on_lanes_ms_batched_ms_per_frame=lane_k3_ms,
+                  lanes_max_abs_err=lane_err),
             relayout_entry("relayout_interleave_vec_kernel and "
                            "relayout_word_tile_kernel (P1)", "interleave",
                            "tools/exp_interleave.py:135",

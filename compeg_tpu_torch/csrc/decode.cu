@@ -1,11 +1,12 @@
 // The decode kernels of compeg_tpu_torch, for Hopper (sm_90a).
 //
-// fused_decode_kernel<IDCT, OUT, BANDED> replaces the Pallas kernels built from
-// _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA assembly after
-// them, and the entropy kernel entropy_decode (compeg_tpu/ops/entropy.py:440,
-// body _make_kernel :365). One launch decodes a batch of same-geometry
-// frames (the JAX package concatenates their blocks along the grid,
-// compeg_tpu/batch.py:71); here the frame is the grid's second dimension.
+// fused_decode_kernel<IDCT, OUT, BANDED, LANES> replaces the Pallas kernels
+// built from _make_fused_kernel (compeg_tpu/ops/fused.py:63) and the XLA
+// assembly after them, and the entropy kernel entropy_decode
+// (compeg_tpu/ops/entropy.py:440, body _make_kernel :365). One launch
+// decodes a batch of same-geometry frames (the JAX package concatenates
+// their blocks along the grid, compeg_tpu/batch.py:71); here the frame is
+// the grid's second dimension.
 // Phase 1, the entropy decode, is the same in every mode; phase 2 (IDCT)
 // and phase 3 (output) are chosen by the template arguments:
 //
@@ -28,9 +29,13 @@
 //       composite of k x k blocks into the [ceil(H*k/8), ceil(W*k/8)] raster
 //
 // K2, K2x and K3 have a third argument BANDED: the banded decode
-// (parallel/sharding.py) launches <IDCT, OUT, true>, whose frames are bands
-// that decode only their MCUs inside the image (DecodeParams::bands), the
-// JAX package's seg_mcus gate; every other launch takes <IDCT, OUT, false>.
+// (parallel/sharding.py) launches <IDCT, OUT, true, false>, whose frames are
+// bands that decode only their MCUs inside the image (DecodeParams::bands),
+// the JAX package's seg_mcus gate. A fourth, LANES: a frame whose restart
+// segments are long (one segment, with no restart markers) is launched as
+// lanes of a few MCUs each, <IDCT, OUT, false, true>, every lane starting
+// from its entry of the table that the lane index (kernel L, at the end of
+// this file) found; every other launch takes <IDCT, OUT, false, false>.
 //
 // What bounds them on the H100. None comes near the card's memory or FMA
 // rate: a 4K frame is 2 MB in and 33 MB out, microseconds of traffic. The
@@ -593,11 +598,16 @@ __device__ __forceinline__ void zero_tile(short* coef, int tile_words,
 // image (frame_mcus). A kernel of its own, so that the gate's code cannot
 // change how the compiler schedules the non-banded launches: K2 took 3 %
 // longer when one kernel served both (PERF.md, PR 11).
-template <int IDCT, int OUT, bool BANDED>
+// LANES: the launch's segments are lanes of a longer restart segment
+// (DecodeParams::seg_ri), each starting from its entry of the lane table
+// `lanes`, {bit, dp[0], dp[1], dp[2]} (the lane index below); an
+// instantiation of its own for the same reason. Other launches pass null.
+template <int IDCT, int OUT, bool BANDED, bool LANES>
 __global__ void __launch_bounds__(Tile<IDCT>::THREADS, Tile<IDCT>::BLOCKS)
 fused_decode_kernel(const uint32_t* __restrict__ rows,
                     const int* __restrict__ tables, const void* __restrict__ op,
-                    const Outputs outs, const DecodeParams p) {
+                    const Outputs outs, const DecodeParams p,
+                    const int4* __restrict__ lanes) {
   extern __shared__ __align__(16) int smem[];
   using T = typename Tile<IDCT>::T;
   const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
@@ -627,7 +637,8 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   // into shared memory while the block sets itself up, so that the bit
   // readers' refills do not wait on device memory.
   int* row_cache = smem + tab_words + tile_words;
-  const bool cached = row_cache_words(p.words) > 0;
+  // A lane's row is its segment's, which the block's other lanes share.
+  const bool cached = !LANES && row_cache_words(p.words) > 0;
   if (cached)
     copy_async(row_cache, reinterpret_cast<const int*>(rows) + (size_t)seg0 * p.words,
                min(K2_SEGS, p.nseg - seg0) * p.words);
@@ -659,11 +670,19 @@ fused_decode_kernel(const uint32_t* __restrict__ rows,
   const int my_seg = seg0 + slot;
   const int my_nm = slot >= 0 ? segment_mcus(p, my_seg, mcus) : 0;
   BitReader br;
-  if (my_nm > 0)
+  if (!LANES && my_nm > 0)
     br.init(cached ? reinterpret_cast<const uint32_t*>(row_cache) + slot * p.words
                    : rows + (size_t)my_seg * p.words,
             p.words);
   int dp[3] = {0, 0, 0};
+  if (LANES && my_nm > 0) {  // the lane's entry of the lane table
+    const int4 e = lanes[frame * p.nseg + my_seg];
+    const int seg = (int)((long long)my_seg * p.ri / p.seg_ri);
+    br.init_at(rows + (size_t)seg * p.words, p.words, e.x);
+    dp[0] = e.y;
+    dp[1] = e.z;
+    dp[2] = e.w;
+  }
 
   // decode_mcu stores only DC and nonzero AC, so the tile is zeroed before
   // each MCU: here once for K1, whose store zeroes what it read, and at the
@@ -730,10 +749,11 @@ inline size_t fused_smem_bytes(const DecodeParams& p, int elem_bytes) {
          (size_t)K2_SEGS * tile_stride(p.dus, elem_bytes) * elem_bytes;
 }
 
-template <int IDCT, int OUT, bool BANDED>
+template <int IDCT, int OUT, bool BANDED, bool LANES = false>
 int launch_kernel(const void* rows, const void* tables, const void* op,
-                  Outputs out, const DecodeParams* p, void* stream) {
-  auto kernel = fused_decode_kernel<IDCT, OUT, BANDED>;
+                  Outputs out, const DecodeParams* p, void* stream,
+                  const void* lanes = nullptr) {
+  auto kernel = fused_decode_kernel<IDCT, OUT, BANDED, LANES>;
   const size_t smem = fused_smem_bytes(*p, sizeof(typename Tile<IDCT>::T));
   // More than 48 KB of dynamic shared memory has to be allowed, once for
   // each instantiation and device; the most allowed so far is kept.
@@ -750,19 +770,31 @@ int launch_kernel(const void* rows, const void* tables, const void* op,
   }
   const dim3 grid((p->nseg + K2_SEGS - 1) / K2_SEGS, p->frames);
   kernel<<<grid, Tile<IDCT>::THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)rows, (const int*)tables, op, out, *p);
+      (const uint32_t*)rows, (const int*)tables, op, out, *p,
+      (const int4*)lanes);
   return (int)cudaSuccess;
 }
 
 // A banded launch (p->bands > 0) takes the BANDED kernel; only the batched
-// K2, K2x and K3 have one (parallel/sharding.py launches no other).
+// K2, K2x and K3 have one (parallel/sharding.py launches no other). A lane
+// launch (a lane table, p->seg_ri > 0) takes the LANES kernel, K2, K2x and
+// K3 alike.
 template <int IDCT, int OUT>
 int launch_fused(const void* rows, const void* tables, const void* op,
-                 Outputs out, const DecodeParams* p, void* stream) {
+                 Outputs out, const DecodeParams* p, void* stream,
+                 const void* lanes = nullptr) {
   if (p->ntables < 1 || p->ntables > MAX_TABLES) return (int)cudaErrorInvalidValue;
+  if ((lanes != nullptr) != (p->seg_ri > 0) || (lanes && p->bands > 0))
+    return (int)cudaErrorInvalidValue;
   if (p->nseg > 0 && p->frames > 0) {
     int err;
-    if (p->bands > 0) {
+    if (lanes) {
+      if constexpr (OUT == kOutCoefs || IDCT == kIdctScaled)
+        return (int)cudaErrorInvalidValue;
+      else
+        err = launch_kernel<IDCT, OUT, false, true>(rows, tables, op, out, p,
+                                                     stream, lanes);
+    } else if (p->bands > 0) {
       if constexpr (OUT == kOutCoefs || IDCT == kIdctScaled)
         return (int)cudaErrorInvalidValue;
       else
@@ -773,6 +805,377 @@ int launch_fused(const void* rows, const void* tables, const void* op,
     if (err != cudaSuccess) return err;
   }
   return (int)cudaGetLastError();
+}
+
+// ---- The lane index (kernel L) -------------------------------------------
+//
+// A restart segment of many MCUs (a frame with no restart markers is one)
+// would be one lane of the fused kernels walking all its MCUs. The lane
+// index finds where every lane of L MCUs starts, so that a LANES launch can
+// decode the segment on many lanes: for lane v the bit of MCU v * L in its
+// segment's row and the DC predictors before it, by Huffman
+// self-synchronisation (Weissenberger and Schmidt, "Massively Parallel
+// Huffman Decoding on GPUs", ICPP 2018, and "Accelerating JPEG Decompression
+// on GPUs", HiPC 2021). It replaces no TPU kernel: the JAX package decodes
+// one restart segment a lane and never splits one.
+//
+// A segment's row is cut into subsequences of SUB_BITS bits. Subsequence t
+// is entered at the first symbol boundary at or after t * SUB_BITS and left
+// at the first at or after (t + 1) * SUB_BITS, a boundary being the state of
+// LaneWalk (csrc/entropy.cuh): the bit, the data unit and the zigzag
+// position (LaneWalk::kind). Only a segment's active subsequences take part past the first pass: those
+// up to the last that holds a word other than zero. A row is its segment's
+// bits and then zero words up to the batch's widest segment, and a decode
+// that starts at a guess inside zeros never meets the true path there (the
+// zeros decode periodically, so the two stay out of step), which would
+// leave every one of them to the serial repair. A segment whose MCUs run on
+// into the zeros is still decoded whole: the last active subsequence goes
+// on until the segment's last MCU (4 below).
+//  1. lane_sync_kernel, a thread a subsequence: it starts LEAD_SUBS
+//     subsequences back at a guess (an MCU start there; the segment's true
+//     start for t <= LEAD_SUBS), decodes to t's entry and on to its exit,
+//     counting the MCUs that start in between and summing each component's
+//     DC differences, and marks its segment's last subsequence that holds a
+//     word other than zero. A Huffman decode that starts at a wrong place falls
+//     into step with the right one's symbols within a few dozen bits, but
+//     into step with its place in the MCU (which data unit, so which
+//     table) only by chance at a data unit of another table: at 1080p 4:2:0
+//     q95 half the guesses have met the true path after about 800 bits, 99 %
+//     after about 7,300 (PERF.md).
+//  2. lane_round_kernel, ROUNDS times: every subsequence whose entry is not
+//     its predecessor's exit takes that exit as its entry and is decoded
+//     again; a round after one that changed nothing returns at once. A run
+//     of k guesses that missed needs k rounds.
+//  3. lane_fix_kernel, a block a segment: where an exit is still not its
+//     successor's entry (a run longer than ROUNDS), the successor is decoded
+//     again from that exit, and so on down the row until an exit meets the
+//     next entry. Thread 0 does that alone; the block finds the mismatches.
+//     Every entry is then the serial decode's, on any bits (subsequence 0
+//     starts at the true start), garbage and short rows included. Then an
+//     exclusive scan of the counts and sums gives each subsequence's first
+//     MCU and predictors, and the lane table's entry at every MCU whose
+//     index in the frame is a multiple of L follows from the first STARTS
+//     MCU starts each subsequence's decode kept.
+//  4. lane_index_kernel, a thread a subsequence that had more MCU starts
+//     than it kept, and the last active one: it decodes t again from its
+//     entry and writes those entries. The last goes on past its end until
+//     the segment's last MCU (garbage can read past the row).
+//
+// What bounds it: like phase 1 of the fused kernels, the chain of dependent
+// shifts, lookups and compares of each symbol, LEAD_SUBS + 1 times over the
+// bits (the guess's lead-in, the subsequence) and again for the guesses that
+// missed, which the rounds decode one subsequence a round (at 1080p q95, 0.020
+// ms of a frame's 0.054 in the first pass, 0.028 in the rounds, PERF.md); the
+// row is read from device memory a few times and the table written once,
+// microseconds of traffic. What the design does about it: a thread for every
+// SUB_BITS bits, so a frame of 6 Mbit gives thousands of independent chains
+// and the card's schedulers always find one ready; the tables in shared
+// memory and a data unit's tables and the DC sums in registers; the rounds
+// decode only what changed; the serial repair only where the rounds did not
+// reach; no second pass where a subsequence kept its MCU starts.
+constexpr int SUB_BITS = 1024;     // bits of a subsequence
+constexpr int LEAD_SUBS = 1;       // subsequences a guess starts back
+constexpr int ROUNDS = 8;          // rounds after the guesses
+constexpr int STARTS = 4;          // MCU starts a subsequence's decode keeps
+constexpr int LANE_THREADS = 128;  // threads of a sync, round or index block
+constexpr int FIX_THREADS = 256;   // most threads of a repair block
+constexpr int FIX_SPAN = 8;        // subsequences a repair thread checks at once
+
+// The scratch of a subsequence, SUB_INT4 int4: {entry bit, entry kind, exit
+// bit, exit kind}; {MCUs started, the DC sums of components 0, 1, 2}, where
+// the scan leaves the MCUs and sums before the subsequence; then the first
+// STARTS MCUs that start in it, {bit, DC sums from its entry to there}. After
+// every subsequence of the launch, ROUNDS ints, whether round r changed an
+// entry, and an int a segment, its active subsequences; compeg_lane_index
+// zeroes those first.
+constexpr int SUB_INT4 = 2 + STARTS;
+
+__device__ __host__ __forceinline__ int lane_subs(int words) {
+  return (int)(((long long)words * 32 + SUB_BITS - 1) / SUB_BITS);
+}
+
+// Segments of the launch, every frame's.
+__device__ __host__ __forceinline__ int lane_segs(const DecodeParams& p) {
+  return p.frames * ((p.total_mcus + p.seg_ri - 1) / p.seg_ri);
+}
+
+// The ints after the subsequences: the rounds' flags, then the segments'
+// active subsequence counts.
+__device__ __forceinline__ int* lane_tail(int4* scratch, const DecodeParams& p,
+                                          int nsub) {
+  return reinterpret_cast<int*>(scratch + (size_t)SUB_INT4 * lane_segs(p) * nsub);
+}
+
+// Subsequence t from the walk's place and state, its entry, into its
+// scratch: the exit, the MCU count and DC sums, the first MCU starts.
+__device__ __forceinline__ void lane_sub(LaneWalk& w, int t,
+                                         const uint16_t* tab,
+                                         const DecodeParams& p, int4* sub) {
+  const int entry_bit = w.br.bit(), entry_kind = w.kind();
+  w.dc0 = w.dc1 = w.dc2 = 0;
+  int mcus = 0;
+  while (w.br.bit() < (t + 1) * SUB_BITS) {
+    if (w.mcu_start()) {
+      if (mcus < STARTS)
+        sub[2 + mcus] =
+            make_int4(w.br.bit(), (int)w.dc0, (int)w.dc1, (int)w.dc2);
+      ++mcus;
+    }
+    w.step(tab, p);
+  }
+  sub[0] = make_int4(entry_bit, entry_kind, w.br.bit(), w.kind());
+  sub[1] = make_int4(mcus, (int)w.dc0, (int)w.dc1, (int)w.dc2);
+}
+
+// The segment a subsequence lies in, and its row.
+struct LaneSegment {
+  int seg;    // segment of the launch, frame-major: frame * nsegr + s
+  int s;      // segment of its frame
+  int mcus;   // MCUs of that segment
+  const uint32_t* row;
+};
+
+__device__ __forceinline__ LaneSegment lane_segment(const uint32_t* rows,
+                                                    const DecodeParams& p,
+                                                    int seg) {
+  const int nsegr = (p.total_mcus + p.seg_ri - 1) / p.seg_ri;
+  const int f = seg / nsegr, s = seg - f * nsegr;
+  const int left = p.total_mcus - s * p.seg_ri;
+  return {seg, s, left < p.seg_ri ? left : p.seg_ri,
+          rows + ((size_t)f * p.frame_rows + s) * p.words};
+}
+
+// The sync, round and index kernels take a thread a subsequence, numbered
+// over the launch's segments one after the other, so that short segments
+// share a block. Each block brings the tables into shared memory first.
+__device__ __forceinline__ int lane_thread(const int* tables, int* smem,
+                                           const DecodeParams& p) {
+  copy_async(smem, tables, p.ntables * TAB_WORDS);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  return blockIdx.x * LANE_THREADS + threadIdx.x;
+}
+
+__global__ void __launch_bounds__(LANE_THREADS)
+lane_sync_kernel(const uint32_t* __restrict__ rows,
+                 const int* __restrict__ tables, int4* scratch,
+                 const DecodeParams p) {
+  extern __shared__ __align__(16) int smem[];
+  const int nsub = lane_subs(p.words);
+  const int g = lane_thread(tables, smem, p);
+  if (g >= lane_segs(p) * nsub) return;
+  const int t = g % nsub;
+  const LaneSegment sg = lane_segment(rows, p, g / nsub);
+  bool words = t == 0;  // the segment's first subsequence is always active
+  for (int w = t * (SUB_BITS / 32); w < min((t + 1) * (SUB_BITS / 32), p.words);
+       ++w)
+    words |= sg.row[w] != 0;
+  if (words) atomicMax(lane_tail(scratch, p, nsub) + ROUNDS + sg.seg, t + 1);
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  LaneWalk w;
+  w.start(sg.row, p.words, t <= LEAD_SUBS ? 0 : (t - LEAD_SUBS) * SUB_BITS, 0,
+          tab, p);
+  while (w.br.bit() < t * SUB_BITS) w.step(tab, p);
+  lane_sub(w, t, tab, p, scratch + (size_t)SUB_INT4 * g);
+}
+
+// Round r of the repair: a subsequence whose entry is not its predecessor's
+// exit (as the predecessor's last decode left it, read past the L1, since
+// it may change during the round) is decoded again from that exit.
+__global__ void __launch_bounds__(LANE_THREADS)
+lane_round_kernel(const uint32_t* __restrict__ rows,
+                  const int* __restrict__ tables, int4* scratch,
+                  const DecodeParams p, int r) {
+  extern __shared__ __align__(16) int smem[];
+  const int nsub = lane_subs(p.words);
+  int* changed = lane_tail(scratch, p, nsub);
+  if (r > 0 && __ldcg(changed + r - 1) == 0) return;  // a fixed point
+  const int g = lane_thread(tables, smem, p);
+  const int t = g % nsub;
+  if (g >= lane_segs(p) * nsub || t == 0 ||
+      t >= changed[ROUNDS + g / nsub])  // past the segment's active ones
+    return;
+  int4* sub = scratch + (size_t)SUB_INT4 * g;
+  const int4 before = __ldcg(sub - SUB_INT4), mine = sub[0];
+  if (before.z == mine.x && before.w == mine.y) return;
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  LaneWalk w;
+  w.start(lane_segment(rows, p, g / nsub).row, p.words, before.z, before.w,
+          tab, p);
+  lane_sub(w, t, tab, p, sub);
+  changed[r] = 1;
+}
+
+// A block a segment, of blockDim.x threads (a multiple of 32, at most
+// FIX_THREADS): the serial repair, the scan, and the lane table's entries
+// at the MCU starts the subsequences kept.
+__global__ void __launch_bounds__(FIX_THREADS)
+lane_fix_kernel(const uint32_t* __restrict__ rows,
+                const int* __restrict__ tables, int4* scratch,
+                int4* __restrict__ lanes, const DecodeParams p) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int first_s, next_s;
+  __shared__ uint4 part_s[FIX_THREADS / 32];
+  copy_async(smem, tables, p.ntables * TAB_WORDS);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  const int nrow = lane_subs(p.words);
+  const LaneSegment sg = lane_segment(rows, p, blockIdx.x);
+  int4* sub = scratch + (size_t)SUB_INT4 * sg.seg * nrow;
+  const int nsub = lane_tail(scratch, p, nrow)[ROUNDS + sg.seg];  // active
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // Repair: find the first subsequence whose exit is not its successor's
+  // entry, decode from there on alone until an exit meets the next entry,
+  // look again past it.
+  for (int lo = 0; lo < nsub - 1;) {
+    if (tid == 0) first_s = nsub;
+    __syncthreads();
+    int mine = nsub;
+#pragma unroll
+    for (int k = FIX_SPAN - 1; k >= 0; --k) {
+      const int t = lo + k * nt + tid;
+      if (t < nsub - 1) {
+        const int4 a = sub[SUB_INT4 * t], b = sub[SUB_INT4 * (t + 1)];
+        if (a.z != b.x || a.w != b.y) mine = t;
+      }
+    }
+    if (mine < nsub) atomicMin(&first_s, mine);
+    __syncthreads();
+    const int first = first_s;
+    if (first == nsub) {
+      lo += FIX_SPAN * nt;
+      __syncthreads();  // first_s is read before it is reset
+      continue;
+    }
+    if (tid == 0) {
+      int u = first;
+      int4 now = sub[SUB_INT4 * u];
+      for (;;) {
+        ++u;
+        LaneWalk w;
+        w.start(sg.row, p.words, now.z, now.w, tab, p);
+        lane_sub(w, u, tab, p, sub + SUB_INT4 * u);
+        now = sub[SUB_INT4 * u];
+        if (u == nsub - 1) break;
+        const int4 nx = sub[SUB_INT4 * (u + 1)];
+        if (nx.x == now.z && nx.y == now.w) break;
+      }
+      next_s = u;
+    }
+    __syncthreads();
+    lo = next_s;
+    __syncthreads();  // first_s and next_s are read before they change
+  }
+  // Exclusive scan of {MCUs, DC sums} over the subsequences, wrapping in 32
+  // bits: a thread takes a run of `each`, the warps' and the block's totals
+  // by shuffles and shared memory.
+  const int each = (nsub + nt - 1) / nt;
+  const int t0 = min(tid * each, nsub), t1 = min(t0 + each, nsub);
+  uint4 sum = make_uint4(0, 0, 0, 0);
+  for (int t = t0; t < t1; ++t) {
+    const int4 c = sub[SUB_INT4 * t + 1];
+    sum.x += c.x;
+    sum.y += c.y;
+    sum.z += c.z;
+    sum.w += c.w;
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  uint4 inc = sum;  // inclusive over the warp's lanes
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned x = __shfl_up_sync(0xFFFFFFFFu, inc.x, o);
+    const unsigned y = __shfl_up_sync(0xFFFFFFFFu, inc.y, o);
+    const unsigned z = __shfl_up_sync(0xFFFFFFFFu, inc.z, o);
+    const unsigned w = __shfl_up_sync(0xFFFFFFFFu, inc.w, o);
+    if (lane >= o) {
+      inc.x += x;
+      inc.y += y;
+      inc.z += z;
+      inc.w += w;
+    }
+  }
+  if (lane == 31) part_s[warp] = inc;
+  __syncthreads();
+  uint4 run = make_uint4(inc.x - sum.x, inc.y - sum.y, inc.z - sum.z,
+                         inc.w - sum.w);
+  for (int w = 0; w < warp; ++w) {
+    run.x += part_s[w].x;
+    run.y += part_s[w].y;
+    run.z += part_s[w].z;
+    run.w += part_s[w].w;
+  }
+  // The entries at the kept MCU starts; a subsequence with more starts than
+  // it kept, and the last (which goes on past its end), are the index
+  // kernel's.
+  const int nsegr = (p.total_mcus + p.seg_ri - 1) / p.seg_ri;
+  int4* out = lanes + (size_t)(sg.seg / nsegr) * p.nseg;
+  const int first = sg.s * p.seg_ri;  // the segment's first MCU in the frame
+  for (int t = t0; t < t1; ++t) {
+    int4* st = sub + SUB_INT4 * t;
+    const int4 c = st[1];
+    st[1] = make_int4((int)run.x, (int)run.y, (int)run.z, (int)run.w);
+    const int kept = min(c.x, STARTS);
+    for (int k = 0; k < kept && (int)run.x + k < sg.mcus; ++k) {
+      const int j = first + (int)run.x + k;
+      if (j % p.ri == 0) {
+        const int4 at = st[2 + k];
+        out[j / p.ri] = make_int4(at.x, (int)(run.y + at.y),
+                                  (int)(run.z + at.z), (int)(run.w + at.w));
+      }
+    }
+    run.x += c.x;
+    run.y += c.y;
+    run.z += c.z;
+    run.w += c.w;
+  }
+}
+
+// The subsequences whose MCU starts the repair block did not keep: decoded
+// again from their entries, writing the lane table's entry at every MCU
+// whose index in the frame is a multiple of L; the last goes on past its
+// end until the segment's last MCU (garbage can read past the row).
+__global__ void __launch_bounds__(LANE_THREADS)
+lane_index_kernel(const uint32_t* __restrict__ rows,
+                  const int* __restrict__ tables,
+                  const int4* __restrict__ scratch, int4* __restrict__ lanes,
+                  const DecodeParams p) {
+  extern __shared__ __align__(16) int smem[];
+  const int nrow = lane_subs(p.words);
+  const int g = lane_thread(tables, smem, p);
+  if (g >= lane_segs(p) * nrow) return;
+  const int t = g % nrow;
+  const int nsub = reinterpret_cast<const int*>(
+      scratch + (size_t)SUB_INT4 * lane_segs(p) * nrow)[ROUNDS + g / nrow];
+  if (t >= nsub) return;  // past the segment's active subsequences
+  const LaneSegment sg = lane_segment(rows, p, g / nrow);
+  const int4* sub = scratch + (size_t)SUB_INT4 * g;
+  const int4 state = sub[0], base = sub[1];
+  int m = base.x;  // the segment's MCUs before t
+  if (m >= sg.mcus) return;
+  const bool last = t == nsub - 1;
+  if (!last && sub[SUB_INT4 + 1].x - m <= STARTS) return;  // all kept
+  const uint16_t* tab = reinterpret_cast<const uint16_t*>(smem);
+  LaneWalk w;  // its sums are the predictors
+  w.start(sg.row, p.words, state.x, state.y, tab, p);
+  w.dc0 = base.y;
+  w.dc1 = base.z;
+  w.dc2 = base.w;
+  const int nsegr = (p.total_mcus + p.seg_ri - 1) / p.seg_ri;
+  int4* out = lanes + (size_t)(sg.seg / nsegr) * p.nseg;
+  const int first = sg.s * p.seg_ri;  // the segment's first MCU in the frame
+  const int end = (t + 1) * SUB_BITS;
+  for (;;) {
+    if (!last && w.br.bit() >= end) break;
+    if (w.mcu_start()) {
+      if (m >= sg.mcus) break;
+      if ((first + m) % p.ri == 0)
+        out[(first + m) / p.ri] =
+            make_int4(w.br.bit(), (int)w.dc0, (int)w.dc1, (int)w.dc2);
+      ++m;
+    }
+    w.step(tab, p);
+  }
 }
 
 }  // namespace
@@ -829,6 +1232,76 @@ int compeg_fused_decode_scaled(const void* rows, const void* tables,
                                void* stream) {
   return launch_fused<kIdctScaled, kOutRgba>(rows, tables, op, {{out, 0, 0}},
                                              p, stream);
+}
+
+// The lane index (kernel L) of a LANES launch with the same parameters
+// (p->nseg lanes of p->ri MCUs, segments of p->seg_ri): lanes = [frames,
+// p->nseg, 4] int32, scratch = [frames, segments, subsequences, SUB_INT4,
+// 4] int32 and ROUNDS + frames * segments more, of any content.
+int compeg_lane_index(const void* rows, const void* tables, void* scratch,
+                      void* lanes, const DecodeParams* p, void* stream) {
+  if (p->ntables < 1 || p->ntables > MAX_TABLES || p->seg_ri < 1 ||
+      p->ri < 1 || (p->seg_ri % p->ri != 0 && p->seg_ri < p->total_mcus))
+    return (int)cudaErrorInvalidValue;
+  if (p->nseg > 0 && p->frames > 0 && p->words > 0) {
+    const int nsegs = lane_segs(*p);
+    const int nsub = lane_subs(p->words);
+    const unsigned blocks =
+        (unsigned)(((long long)nsegs * nsub + LANE_THREADS - 1) / LANE_THREADS);
+    const int fix = min(FIX_THREADS, (nsub + 31) / 32 * 32);
+    const size_t smem = sizeof(int) * p->ntables * TAB_WORDS;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const uint32_t* r = (const uint32_t*)rows;
+    const int* tab = (const int*)tables;
+    int4* sc = (int4*)scratch;
+    const cudaError_t err = cudaMemsetAsync(
+        sc + (size_t)SUB_INT4 * nsegs * nsub, 0,
+        sizeof(int) * (ROUNDS + nsegs), st);  // no round changed, no segment active
+    if (err != cudaSuccess) return (int)err;
+    lane_sync_kernel<<<blocks, LANE_THREADS, smem, st>>>(r, tab, sc, *p);
+    for (int round = 0; round < ROUNDS; ++round)
+      lane_round_kernel<<<blocks, LANE_THREADS, smem, st>>>(r, tab, sc, *p,
+                                                            round);
+    lane_fix_kernel<<<nsegs, fix, smem, st>>>(r, tab, sc, (int4*)lanes, *p);
+    lane_index_kernel<<<blocks, LANE_THREADS, smem, st>>>(r, tab, sc,
+                                                          (int4*)lanes, *p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2, K2x and K3 (either IDCT) on lanes: the entry points above with the
+// lane table of compeg_lane_index after op.
+int compeg_fused_decode_lanes(const void* rows, const void* tables,
+                              const void* op, const void* lanes, void* out,
+                              const DecodeParams* p, void* stream) {
+  return launch_fused<kIdctFloat, kOutRgba>(rows, tables, op, {{out, 0, 0}}, p,
+                                            stream, lanes);
+}
+
+int compeg_fused_decode_exact_lanes(const void* rows, const void* tables,
+                                    const void* op, const void* lanes,
+                                    void* out, const DecodeParams* p,
+                                    void* stream) {
+  return launch_fused<kIdctInt, kOutRgba>(rows, tables, op, {{out, 0, 0}}, p,
+                                          stream, lanes);
+}
+
+int compeg_fused_decode_planes_lanes(const void* rows, const void* tables,
+                                     const void* op, const void* lanes,
+                                     void* y, void* cb, void* cr,
+                                     const DecodeParams* p, void* stream) {
+  return launch_fused<kIdctFloat, kOutPlanes>(rows, tables, op, {{y, cb, cr}},
+                                              p, stream, lanes);
+}
+
+int compeg_fused_decode_planes_exact_lanes(const void* rows,
+                                           const void* tables, const void* op,
+                                           const void* lanes, void* y,
+                                           void* cb, void* cr,
+                                           const DecodeParams* p,
+                                           void* stream) {
+  return launch_fused<kIdctInt, kOutPlanes>(rows, tables, op, {{y, cb, cr}}, p,
+                                            stream, lanes);
 }
 
 }  // extern "C"

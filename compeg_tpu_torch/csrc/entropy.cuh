@@ -93,6 +93,11 @@ struct DecodeParams {
   int bands;
   int band0;
   int image_mcus;
+  // A lane launch (ops/lanes.py): the frame's restart segments are cut into
+  // lanes of ri MCUs, p.nseg of them, and lane v reads the row of segment
+  // v * ri / seg_ri from its entry of the lane table (the lane index,
+  // decode.cu lane_*_kernel). 0 on every other launch.
+  int seg_ri;
 };
 
 // One Huffman table as ops/entropy.py pack_tables lays it out, in 16-bit
@@ -148,6 +153,21 @@ struct BitReader {
     nbits = 0;
     win = 0;
   }
+
+  // Start at bit `bit` of the row: the window then holds what the serial
+  // reader's holds there, since a word is fetched by its absolute index,
+  // clamped alike, and every read lies inside the valid bits.
+  __device__ __forceinline__ void init_at(const uint32_t* r, int words,
+                                          int bit) {
+    init(r, words);
+    widx = bit >> 5;
+    refill();
+    win <<= bit & 31;
+    nbits -= bit & 31;
+  }
+
+  // The position of the next unread bit in the row.
+  __device__ __forceinline__ int bit() const { return widx * 32 - nbits; }
 
   // Top the window up to >= 32 valid bits. nbits < 32 here, so the shift
   // is 1..32 and never reaches 64.
@@ -228,3 +248,69 @@ __device__ __forceinline__ void decode_mcu(Reader& br, int* dp,
     }
   }
 }
+
+// The entropy decode symbol by symbol from any place, as the lane index
+// (decode.cu lane_*_kernel) walks it: data unit d of the MCU is next, with
+// pos = -1 for its DC symbol, else the zigzag position its block has reached
+// (0..62); kind() folds the two into one int, 0 at an MCU's start. step()
+// decodes one symbol with decode_mcu's reads and semantics: a DC symbol adds
+// its difference to its component's sum (dc0, dc1, dc2, wrapping) and opens
+// the block's AC run; an AC symbol moves pos as decode_mcu does, and the
+// block ends at EOB or pos >= 63, where the next data unit's DC follows (d
+// back to 0 after the MCU's last). The data unit's two tables are looked up
+// once a block and the sums are registers, so the chain of one symbol holds
+// only the window, a table entry and the shifts.
+struct LaneWalk {
+  BitReader br;
+  int d, pos, comp;
+  const uint16_t* dctab;
+  const uint16_t* actab;
+  unsigned dc0, dc1, dc2;
+
+  __device__ __forceinline__ void unit(int du, const uint16_t* tables,
+                                       const DecodeParams& p) {
+    d = du;
+    comp = p.du_to_comp[du];
+    dctab = tables + p.table_of[2 * comp] * TAB_HALVES;
+    actab = tables + p.table_of[2 * comp + 1] * TAB_HALVES;
+  }
+
+  // At bit `bit` of a row in state `kind`, the sums zero.
+  __device__ __forceinline__ void start(const uint32_t* row, int words,
+                                        int bit, int kind,
+                                        const uint16_t* tables,
+                                        const DecodeParams& p) {
+    br.init_at(row, words, bit);
+    unit(kind >> 6, tables, p);
+    pos = (kind & 63) - 1;
+    dc0 = dc1 = dc2 = 0;
+  }
+
+  __device__ __forceinline__ int kind() const { return d * 64 + pos + 1; }
+  __device__ __forceinline__ bool mcu_start() const {
+    return d == 0 && pos < 0;
+  }
+
+  __device__ __forceinline__ void step(const uint16_t* tables,
+                                       const DecodeParams& p) {
+    int s, mag;
+    if (pos < 0) {
+      decode_symbol(br, dctab, true, s, mag);
+      const unsigned v = (unsigned)extend(mag, s);
+      dc0 += comp == 0 ? v : 0u;
+      dc1 += comp == 1 ? v : 0u;
+      dc2 += comp == 2 ? v : 0u;
+      pos = 0;
+      return;
+    }
+    const int value = decode_symbol(br, actab, false, s, mag);
+    const int rrrr = value >> 4;
+    pos = (s == 0 && rrrr == 0)
+              ? 64
+              : pos + rrrr + 1 + (p.zrl17 && s == 0 && rrrr == 15);
+    if (pos >= 63) {
+      pos = -1;
+      unit(d + 1 == p.dus ? 0 : d + 1, tables, p);
+    }
+  }
+};

@@ -40,10 +40,11 @@ NVCC_FLAGS = (
 
 # One count per kernel: K1, K2, K2x, K3 (either IDCT) and K2s, then the four
 # relayout kernels, the copy's shift route apart from P4's other kernels,
-# and the planes epilogue E. A batch of B frames is one launch and adds one.
+# the planes epilogue E and the lane index L (its kernels one launch).
+# A batch of B frames is one launch and adds one.
 LAUNCHES = {"entropy": 0, "fused": 0, "fused_exact": 0, "planes": 0,
             "scaled": 0, "interleave": 0, "swap_crop": 0, "stack": 0,
-            "spread_merge": 0, "copy_shift": 0, "epilogue": 0}
+            "spread_merge": 0, "copy_shift": 0, "epilogue": 0, "lanes": 0}
 
 # C entry points and their number of tensor arguments (data pointers
 # before the params struct and the stream; csrc/decode.cu, csrc/relayout.cu,
@@ -55,6 +56,11 @@ ENTRY_POINTS = {
     "compeg_fused_decode_planes": 6,
     "compeg_fused_decode_planes_exact": 6,
     "compeg_fused_decode_scaled": 4,
+    "compeg_lane_index": 4,
+    "compeg_fused_decode_lanes": 5,
+    "compeg_fused_decode_exact_lanes": 5,
+    "compeg_fused_decode_planes_lanes": 7,
+    "compeg_fused_decode_planes_exact_lanes": 7,
     "compeg_relayout_interleave": 2,
     "compeg_relayout_swap_crop": 2,
     "compeg_relayout_stack": 2,
@@ -104,6 +110,7 @@ class DecodeParams(ctypes.Structure):
         ("bands", ctypes.c_int32),
         ("band0", ctypes.c_int32),
         ("image_mcus", ctypes.c_int32),
+        ("seg_ri", ctypes.c_int32),
     ]
 
 
@@ -136,7 +143,7 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
                 width=0, height=0, width_mcus=0, rgb=False, zrl17=False,
                 blk=8, zlen=64, frames=1, frame_rows=0,
                 composite=None, planes=None, table_of=None,
-                gate=None) -> DecodeParams:
+                gate=None, seg_ri=0) -> DecodeParams:
     """The launch parameters; the frame fields are read by the fused
     kernels only, ``blk`` and ``zlen`` by the scaled one. ``nseg``,
     ``total_mcus`` and the sizes are one frame's; a batch sets ``frames``
@@ -152,7 +159,10 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
     ``gate`` is a banded launch's ``(image_mcus, bands, first)``
     (:class:`compeg_tpu_torch.ops.fused.BandGate`): frame ``f`` is band
     ``first + f % bands`` of an image of ``image_mcus`` MCUs and holds only
-    its MCUs inside the image; without it every frame holds ``total_mcus``."""
+    its MCUs inside the image; without it every frame holds ``total_mcus``.
+    ``seg_ri`` makes it a lane launch (:mod:`compeg_tpu_torch.ops.lanes`):
+    ``nseg`` lanes of ``ri`` MCUs cut from restart segments of ``seg_ri``
+    MCUs."""
     if not 1 <= len(du_to_comp) <= 6 or not 1 <= len(samplings) <= 3:
         raise ValueError(
             f"unsupported MCU layout: {len(du_to_comp)} data units, "
@@ -163,7 +173,7 @@ def make_params(nseg, words, ri, total_mcus, du_to_comp, samplings,
         dus=len(du_to_comp), ncomp=len(samplings), width=width,
         height=height, width_mcus=width_mcus, rgb=int(rgb),
         zrl17=int(zrl17), blk=blk, zlen=zlen, frames=frames,
-        frame_rows=frame_rows,
+        frame_rows=frame_rows, seg_ri=seg_ri,
     )
     if composite is not None:
         p.mcu_w, p.mcu_h, row_off, col_off = composite

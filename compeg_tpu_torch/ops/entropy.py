@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -240,8 +240,8 @@ _M32 = 0xFFFFFFFF
 
 def _peek32(flat: torch.Tensor, width: int, idx: torch.Tensor,
             bitpos: torch.Tensor) -> torch.Tensor:
-    """The 32 bits at ``bitpos`` of segments ``idx``, as int64, from the
-    flattened ``[nseg * width]`` words. A segment's stream is its row's
+    """The 32 bits at ``bitpos`` of rows ``idx``, as int64, from the
+    flattened ``[rows * width]`` words. A row's stream is its
     words in order with the word index clamped to the row's last word,
     exactly what the kernel's refilled window holds."""
     base = idx * width
@@ -253,7 +253,7 @@ def _peek32(flat: torch.Tensor, width: int, idx: torch.Tensor,
 
 
 def _symbol(flat, width, idx, bitpos, tab, dc: bool):
-    """Decode one symbol of segments ``idx`` at their ``bitpos`` with table
+    """Decode one symbol of rows ``idx`` at their ``bitpos`` with table
     ``tab`` = (limits, delta, values, max_len, num_values). Returns (value,
     s, magnitude bits, bits used)."""
     limits, delta, values, max_len, nv = tab
@@ -278,20 +278,38 @@ def _extend(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 def entropy_decode_reference(rows: torch.Tensor, nseg: int,
                              tables: EntropyTables, ri: int, total_mcus: int,
-                             du_to_comp: Sequence[int]) -> torch.Tensor:
-    """Plain PyTorch version of :func:`entropy_decode`, on any device."""
-    _check(rows, nseg, tables)
+                             du_to_comp: Sequence[int],
+                             lanes: Optional[torch.Tensor] = None,
+                             seg_ri: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`entropy_decode`, on any device.
+
+    With ``lanes`` (``[nseg, 4]`` int32, :func:`compeg_tpu_torch.ops.lanes.
+    lane_index`) the ``nseg`` segments are lanes of ``ri`` MCUs cut from
+    restart segments of ``seg_ri`` MCUs, whose rows ``rows`` holds: lane
+    ``v`` reads row ``v * ri // seg_ri`` from bit ``lanes[v, 0]`` with the
+    DC predictors ``lanes[v, 1:]``, as a LANES launch of the fused kernels
+    does."""
     dev = rows.device
+    seg = torch.arange(nseg, device=dev)
+    if lanes is None:
+        row_of, nrows = seg, nseg
+    else:
+        row_of, nrows = seg * ri // seg_ri, -(-total_mcus // seg_ri)
+    _check(rows, nrows, tables)
     dus = len(du_to_comp)
     out = torch.zeros((nseg, ri, dus, 64), dtype=torch.int32, device=dev)
     width = rows.shape[1]
-    flat = rows[:nseg].reshape(-1).to(torch.int64) & _M32
-    seg = torch.arange(nseg, device=dev)
+    flat = rows[:nrows].reshape(-1).to(torch.int64) & _M32
     nm = torch.clamp(total_mcus - seg * ri, 0, ri)
-    bitpos = torch.zeros(nseg, dtype=torch.int64, device=dev)
     ncomp = tables.limits.shape[0]
-    # DC predictors in int32 like the kernels (wrapping on garbage input).
-    dp = torch.zeros((ncomp, nseg), dtype=torch.int32, device=dev)
+    if lanes is None:
+        bitpos = torch.zeros(nseg, dtype=torch.int64, device=dev)
+        # DC predictors in int32 like the kernels (wrapping on garbage input).
+        dp = torch.zeros((ncomp, nseg), dtype=torch.int32, device=dev)
+    else:
+        bitpos = lanes[:, 0].to(torch.int64)
+        dp = lanes[:, 1:1 + ncomp].T.clone(  # updated in place below
+            memory_format=torch.contiguous_format)
     tabs = [
         [(tables.limits[c, k].long(), tables.delta[c, k].long(),
           tables.values[c, k].long(), int(tables.max_len[c, k]),
@@ -304,16 +322,16 @@ def entropy_decode_reference(rows: torch.Tensor, nseg: int,
             break
         for d, comp in enumerate(du_to_comp):
             dctab, actab = tabs[comp]
-            _, s, mag, n = _symbol(flat, width, act, bitpos[act], dctab,
-                                   dc=True)
+            _, s, mag, n = _symbol(flat, width, row_of[act], bitpos[act],
+                                   dctab, dc=True)
             bitpos[act] += n
             dp[comp, act] += _extend(mag, s).to(torch.int32)
             out[act, m, d, 0] = dp[comp, act]
             # AC loop: step every segment whose block is still open.
             idx, pos = act, torch.zeros_like(act)
             while idx.numel():
-                value, s, mag, n = _symbol(flat, width, idx, bitpos[idx],
-                                           actab, dc=False)
+                value, s, mag, n = _symbol(flat, width, row_of[idx],
+                                           bitpos[idx], actab, dc=False)
                 bitpos[idx] += n
                 rrrr = value >> 4
                 newpos = pos + rrrr + 1

@@ -27,7 +27,11 @@ leading ``B``. ``nseg`` and ``geom`` stay one frame's. (The JAX package
 concatenates the frames' blocks along its grid, compeg_tpu/batch.py:71-114.)
 A banded batch (``parallel/sharding.py``) adds a :class:`BandGate`: each
 frame is a band of a taller image and decodes only its MCUs inside the
-image.
+image. K2, K2x and K3 also take a lane table (``lanes``,
+:class:`~compeg_tpu_torch.ops.lanes.LaneTable`): the frames' long restart
+segments are then decoded as lanes of ``lanes.mcus`` MCUs each, every lane
+from its entry of the table (the LANES launch; the plain twins decode lane
+by lane likewise).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from .color import component_planes, pack_rgba, ycbcr_to_rgba
 from .entropy import EntropyTables, _check, entropy_decode_reference
 from .idct import SCALED_ZLEN, idct_pixels
 from .int_idct import idct_pixels_int
+from .lanes import LaneTable
 
 
 def _check_op(op: torch.Tensor, shape, dtype, device, name: str) -> None:
@@ -168,16 +173,20 @@ def plane_store_route(ptr: int, h: int) -> str:
     return "8-byte" if ptr % 8 == 0 else "byte"
 
 
-def _params(rows, nseg, tables, geom, blk=8, gate=None):
+def _params(rows, nseg, tables, geom, blk=8, gate=None, lanes=None):
+    ri, seg_ri = geom.ri, 0
+    if lanes is not None:  # lanes of lanes.mcus MCUs in the segments' place
+        nseg, ri = lanes.count(geom.total_mcus), lanes.mcus
+        seg_ri = min(geom.ri, geom.total_mcus)
     return _build.make_params(
-        nseg, rows.shape[-1], geom.ri, geom.total_mcus, geom.du_to_comp,
+        nseg, rows.shape[-1], ri, geom.total_mcus, geom.du_to_comp,
         samplings=geom.samplings, width=geom.width, height=geom.height,
         width_mcus=geom.width_mcus, rgb=geom.rgb, zrl17=tables.zrl17,
         blk=blk, zlen=SCALED_ZLEN.get(blk, 64), frames=_frames(rows) or 1,
         frame_rows=rows.shape[-2],
         composite=composite_offsets(tuple(map(tuple, geom.samplings)), blk),
         planes=plane_offsets(tuple(map(tuple, geom.samplings))),
-        table_of=tables.table_of, gate=gate,
+        table_of=tables.table_of, gate=gate, seg_ri=seg_ri,
     )
 
 
@@ -187,60 +196,85 @@ def _batched(shape, rows):
     return tuple(shape) if b is None else (b, *shape)
 
 
-def _per_frame(fn, rows, geom, gate=None):
-    """``fn(frame rows, its MCU count)`` for one frame, or stacked over a
-    batch's frames; a frame's count is ``geom.total_mcus`` or its band's
-    under ``gate``."""
+def _per_frame(fn, rows, geom, gate=None, lanes=None):
+    """``fn(frame rows, its MCU count, its lane table)`` for one frame, or
+    stacked over a batch's frames; a frame's count is ``geom.total_mcus`` or
+    its band's under ``gate``, its lane table its part of ``lanes`` or
+    None."""
     def mcus(f):
         return geom.total_mcus if gate is None else gate.mcus(
             geom.total_mcus, f)
 
+    def lane(f):
+        return lanes if lanes is None or _frames(rows) is None else (
+            lanes._replace(table=lanes.table[f]))
+
     if _frames(rows) is None:
-        return fn(rows, mcus(0))
-    outs = [fn(r, mcus(f)) for f, r in enumerate(rows)]
+        return fn(rows, mcus(0), lane(0))
+    outs = [fn(r, mcus(f), lane(f)) for f, r in enumerate(rows)]
     if isinstance(outs[0], tuple):
         return tuple(torch.stack(p) for p in zip(*outs))
     return torch.stack(outs)
 
 
-def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8, gate=None):
+def _lane_args(entry, op, lanes):
+    """The entry point and its tensors up to the outputs: the LANES one,
+    with the lane table after ``op``, when there is a table."""
+    if lanes is None:
+        return entry, (op,)
+    return entry + "_lanes", (op, lanes.table)
+
+
+def _launch_rgba(entry, key, rows, nseg, tables, op, geom, blk=8, gate=None,
+                 lanes=None):
     out = torch.empty(_batched((geom.height, geom.width), rows),
                       dtype=torch.int32, device=rows.device)
-    _build.launch(entry, rows, tables.packed, op, out,
-                  params=_params(rows, nseg, tables, geom, blk, gate))
+    entry, args = _lane_args(entry, op, lanes)
+    _build.launch(entry, rows, tables.packed, *args, out,
+                  params=_params(rows, nseg, tables, geom, blk, gate, lanes))
     _build.LAUNCHES[key] += 1
     return out
 
 
+def _check_lanes(gate, lanes) -> None:
+    if gate is not None and lanes is not None:
+        raise ValueError("a banded launch takes no lane table")
+
+
 def fused_decode_rgba(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                       lq_t: torch.Tensor, geom,
-                      gate: Optional[BandGate] = None) -> torch.Tensor:
+                      gate: Optional[BandGate] = None,
+                      lanes: Optional[LaneTable] = None) -> torch.Tensor:
     """Decode a frame to packed RGBA ``[H, W]`` int32 (kernel K2), or a
     ``[B, R, W]`` batch to ``[B, H, W]`` in one launch.
 
     ``rows`` are the packed segment words ``[>= nseg, W]`` int32, ``lq_t``
     the operators of :func:`~compeg_tpu_torch.ops.idct.idct_operators`, and
     ``geom`` a :class:`~compeg_tpu_torch.pipeline.FrameGeometry`; ``gate``
-    makes the frames bands (:class:`BandGate`)."""
+    makes the frames bands (:class:`BandGate`), ``lanes`` decodes the
+    segments as the lanes of that table (the LANES launch)."""
+    _check_lanes(gate, lanes)
     if _check_args(rows, nseg, tables, lq_t, geom, 64):
-        return _per_frame(lambda r, m: fused_decode_rgba_reference(
-            r, nseg, tables, lq_t, geom, m), rows, geom, gate)
+        return _per_frame(lambda r, m, ln: fused_decode_rgba_reference(
+            r, nseg, tables, lq_t, geom, m, ln), rows, geom, gate, lanes)
     return _launch_rgba("compeg_fused_decode", "fused", rows, nseg, tables,
-                        lq_t, geom, gate=gate)
+                        lq_t, geom, gate=gate, lanes=lanes)
 
 
 def fused_decode_rgba_exact(rows: torch.Tensor, nseg: int,
                             tables: EntropyTables, qz: torch.Tensor,
-                            geom, gate: Optional[BandGate] = None
+                            geom, gate: Optional[BandGate] = None,
+                            lanes: Optional[LaneTable] = None
                             ) -> torch.Tensor:
     """:func:`fused_decode_rgba` with the exact integer IDCT (kernel K2x);
     ``qz`` are the quantizers of
     :func:`~compeg_tpu_torch.ops.int_idct.int_quantizers`."""
+    _check_lanes(gate, lanes)
     if _check_args(rows, nseg, tables, qz, geom, None):
-        return _per_frame(lambda r, m: fused_decode_rgba_exact_reference(
-            r, nseg, tables, qz, geom, m), rows, geom, gate)
+        return _per_frame(lambda r, m, ln: fused_decode_rgba_exact_reference(
+            r, nseg, tables, qz, geom, m, ln), rows, geom, gate, lanes)
     return _launch_rgba("compeg_fused_decode_exact", "fused_exact", rows,
-                        nseg, tables, qz, geom, gate=gate)
+                        nseg, tables, qz, geom, gate=gate, lanes=lanes)
 
 
 def scaled_geometry(geom, k: int):
@@ -275,7 +309,8 @@ def plane_shapes(geom):
 def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
                         op: torch.Tensor, geom, exact: bool = False,
                         out: Optional[Sequence[torch.Tensor]] = None,
-                        gate: Optional[BandGate] = None
+                        gate: Optional[BandGate] = None,
+                        lanes: Optional[LaneTable] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """Decode a frame to one u8 plane per component (kernel K3), see
     :func:`plane_shapes`; a ``[B, R, W]`` batch gives ``[B, Hc, Wc]`` planes
@@ -283,7 +318,9 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
     quantizers when ``exact``. ``out`` are the planes to write into,
     contiguous u8 tensors of those shapes on the rows' device that may start
     at any byte (:func:`plane_store_route`); new ones by default. ``gate``
-    makes the frames bands (:class:`BandGate`)."""
+    makes the frames bands (:class:`BandGate`), ``lanes`` decodes lanes
+    (:func:`fused_decode_rgba`)."""
+    _check_lanes(gate, lanes)
     shapes = [_batched(s, rows) for s in plane_shapes(geom)]
     if out is not None and (len(out) != len(shapes) or any(
             t.dtype != torch.uint8 or tuple(t.shape) != s
@@ -292,8 +329,8 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
         raise ValueError(f"out must be contiguous uint8 planes {shapes} on "
                          f"{rows.device}")
     if _check_args(rows, nseg, tables, op, geom, None if exact else 64):
-        planes = _per_frame(lambda r, m: fused_decode_planes_reference(
-            r, nseg, tables, op, geom, exact, m), rows, geom, gate)
+        planes = _per_frame(lambda r, m, ln: fused_decode_planes_reference(
+            r, nseg, tables, op, geom, exact, m, ln), rows, geom, gate, lanes)
         if out is None:
             return planes
         for t, plane in zip(out, planes):
@@ -301,11 +338,12 @@ def fused_decode_planes(rows: torch.Tensor, nseg: int, tables: EntropyTables,
         return tuple(out)
     planes = list(out) if out is not None else [
         torch.empty(s, dtype=torch.uint8, device=rows.device) for s in shapes]
-    entry = ("compeg_fused_decode_planes_exact" if exact
-             else "compeg_fused_decode_planes")
-    _build.launch(entry, rows, tables.packed, op,
+    entry, args = _lane_args("compeg_fused_decode_planes_exact" if exact
+                             else "compeg_fused_decode_planes", op, lanes)
+    _build.launch(entry, rows, tables.packed, *args,
                   *(planes + [None] * (3 - len(planes))),
-                  params=_params(rows, nseg, tables, geom, gate=gate))
+                  params=_params(rows, nseg, tables, geom, gate=gate,
+                                 lanes=lanes))
     _build.LAUNCHES["planes"] += 1
     return tuple(planes)
 
@@ -358,30 +396,40 @@ def composite_rgba(pixels: torch.Tensor, geom, blk: int = 8) -> torch.Tensor:
     return pack_rgba(y, c1, c2) if geom.rgb else ycbcr_to_rgba(y, c1, c2)
 
 
-def _coefficients(rows, nseg, tables, geom, mcus=None):
+def _coefficients(rows, nseg, tables, geom, mcus=None, lanes=None):
+    """Raw coefficients, ``[segments or lanes, MCUs each, DUS, 64]``:
+    MCU-major either way, which is all the IDCT and output steps read."""
+    total = geom.total_mcus if mcus is None else mcus
+    if lanes is None:
+        return entropy_decode_reference(rows, nseg, tables, geom.ri, total,
+                                        geom.du_to_comp)
     return entropy_decode_reference(
-        rows, nseg, tables, geom.ri,
-        geom.total_mcus if mcus is None else mcus, geom.du_to_comp)
+        rows, lanes.count(geom.total_mcus), tables, lanes.mcus, total,
+        geom.du_to_comp, lanes=lanes.table,
+        seg_ri=min(geom.ri, geom.total_mcus))
 
 
 def fused_decode_rgba_reference(rows: torch.Tensor, nseg: int,
                                 tables: EntropyTables, lq_t: torch.Tensor,
-                                geom, mcus: Optional[int] = None
+                                geom, mcus: Optional[int] = None,
+                                lanes: Optional[LaneTable] = None
                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_decode_rgba`, on any device:
     :func:`entropy_decode_reference` -> :func:`idct_pixels` ->
     :func:`composite_rgba`. ``mcus`` is the frame's MCU count where a
-    :class:`BandGate` gates it (``geom.total_mcus`` by default)."""
-    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
+    :class:`BandGate` gates it (``geom.total_mcus`` by default); ``lanes``
+    (one frame's table) decodes lane by lane from it."""
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus, lanes)
     return composite_rgba(idct_pixels(coeffs, lq_t), geom)
 
 
 def fused_decode_rgba_exact_reference(rows: torch.Tensor, nseg: int,
                                       tables: EntropyTables, qz: torch.Tensor,
-                                      geom, mcus: Optional[int] = None
+                                      geom, mcus: Optional[int] = None,
+                                      lanes: Optional[LaneTable] = None
                                       ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_decode_rgba_exact`."""
-    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus, lanes)
     return composite_rgba(idct_pixels_int(coeffs, qz), geom)
 
 
@@ -397,10 +445,11 @@ def fused_decode_scaled_reference(rows: torch.Tensor, nseg: int,
 def fused_decode_planes_reference(rows: torch.Tensor, nseg: int,
                                   tables: EntropyTables, op: torch.Tensor,
                                   geom, exact: bool = False,
-                                  mcus: Optional[int] = None
+                                  mcus: Optional[int] = None,
+                                  lanes: Optional[LaneTable] = None
                                   ) -> Tuple[torch.Tensor, ...]:
     """Plain PyTorch version of :func:`fused_decode_planes`."""
-    coeffs = _coefficients(rows, nseg, tables, geom, mcus)
+    coeffs = _coefficients(rows, nseg, tables, geom, mcus, lanes)
     pixels = idct_pixels_int(coeffs, op) if exact else idct_pixels(coeffs, op)
     return component_planes(pixels, geom)
 

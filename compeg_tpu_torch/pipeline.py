@@ -49,8 +49,9 @@ from .ops import entropy as E
 from .ops import fused as F
 from .ops import idct as D
 from .ops import int_idct as I
+from .ops import lanes as L
 from .profiling import (LANES_LAUNCHED, MCUS_LAUNCHED, PACK_PAD_BYTES,
-                        PINNED_READBACKS, count, stage_timer)
+                        PINNED_READBACKS, SPLIT_SEGMENTS, count, stage_timer)
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -413,9 +414,9 @@ class Decoder:
             rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
             return rows.to(self.device)
 
-    def _planes(self, pf: PreparedFrame, rows: torch.Tensor):
+    def _planes(self, pf: PreparedFrame, rows: torch.Tensor, **lanes):
         return F.fused_decode_planes(rows, pf.nseg, pf.tables, pf.op,
-                                     pf.geom, exact=self.exact_idct)
+                                     pf.geom, exact=self.exact_idct, **lanes)
 
     def decode_rows(self, pf: PreparedFrame,
                     rows: torch.Tensor) -> torch.Tensor:
@@ -424,11 +425,25 @@ class Decoder:
         ``[H, W]`` int32, or a ``[B, R, W]`` batch of frames that share
         ``pf``'s geometry and tables to ``[B, H, W]`` in one launch. The
         staged tier gives ``[H, W, 3]`` (``[B, H, W, 3]``) u8 instead, like
-        the JAX package's, frame by frame with one K1 launch each."""
+        the JAX package's, frame by frame with one K1 launch each.
+
+        The fused tier decodes a restart segment of more than
+        ``ops.lanes.split_mcus(frames)`` MCUs (a frame with no restart
+        markers is one) as lanes of a few MCUs each: the lane index L finds
+        where each starts, on the device, and the fused kernel takes its
+        table."""
         with stage_timer("launch"):  # the host's enqueueing of the work
             g = pf.geom
             frames = rows.shape[0] if rows.dim() == 3 else 1
-            count(LANES_LAUNCHED, pf.nseg * frames)
+            mcus = (L.lane_length(min(g.ri, g.total_mcus), pf.nseg, frames)
+                    if self.fused else None)
+            lanes = {}  # the fused wrappers' lanes= where there is a table
+            if mcus is not None:
+                lanes["lanes"] = L.lane_index(rows, pf.nseg, pf.tables, g,
+                                              mcus)
+                count(SPLIT_SEGMENTS, pf.nseg * frames)
+            count(LANES_LAUNCHED, -(-g.total_mcus // mcus) * frames
+                  if lanes else pf.nseg * frames)
             count(MCUS_LAUNCHED, g.total_mcus * frames)
             if not self.fused:
                 def staged(r):
@@ -443,12 +458,12 @@ class Decoder:
                 # K3, then the planes epilogue E: a batch's planes are one
                 # [B, Hc, Wc] tensor each and take one launch, whose vertical
                 # filter stays inside each frame.
-                return C.finalize_planes(self._planes(pf, rows), g.samplings,
-                                         g.width, g.height, fancy=self.fancy,
-                                         rgb=g.rgb)
+                return C.finalize_planes(self._planes(pf, rows, **lanes),
+                                         g.samplings, g.width, g.height,
+                                         fancy=self.fancy, rgb=g.rgb)
             decode = (F.fused_decode_rgba_exact if self.exact_idct
                       else F.fused_decode_rgba)
-            return decode(rows, pf.nseg, pf.tables, pf.op, g)
+            return decode(rows, pf.nseg, pf.tables, pf.op, g, **lanes)
 
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
         """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device
