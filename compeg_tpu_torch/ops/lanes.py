@@ -3,7 +3,7 @@
 The fused kernels decode one restart segment a lane, so a frame with no
 restart markers (one segment, as ``cv2.imwrite`` and ``cjpeg`` write by
 default) runs on one thread through all its MCUs. Where a segment holds more
-than :func:`split_mcus` MCUs, ``Decoder.decode_rows`` cuts it into lanes of
+than :func:`split_mcus` MCUs, ``pipeline.decode_fused`` cuts it into lanes of
 ``L`` MCUs (:func:`lane_length`): the lane index (:func:`lane_index`, kernel
 L of csrc/decode.cu) finds, on the card and from the segment rows as they
 lie, where each lane starts, and the fused kernels' LANES launch decodes the

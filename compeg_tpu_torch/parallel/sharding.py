@@ -74,7 +74,7 @@ from ..ops import color as C
 from ..ops import entropy as E
 from ..ops import fused as F
 from ..ops import idct as D
-from ..pipeline import Decoder, FrameGeometry, row_capacity
+from ..pipeline import Decoder, FrameGeometry, decode_fused, row_capacity
 
 AXES = ("data", "seq")
 
@@ -364,17 +364,14 @@ def decode_batch_sharded(
     check_budget(geom, band_rows, b_l * nb_l, rows.numel() * 4,
                  max_device_bytes)
     bg = band_geometry(geom, band_rows)
-    gate = band_gate(geom, nb_l, s)
-    flat = rows.contiguous().reshape(b_l * nb_l, r, w)
     shard_h = nb_l * bg.height
+    out = decode_fused(rows.contiguous().reshape(b_l * nb_l, r, w), nseg,
+                       tables, op, bg, exact=exact_idct,
+                       planes=fancy_upsample, gate=band_gate(geom, nb_l, s))
     if not fancy_upsample:
-        decode = F.fused_decode_rgba_exact if exact_idct else F.fused_decode_rgba
-        out = decode(flat, nseg, tables, op, bg, gate).reshape(
-            b_l, shard_h, geom.width)
+        out = out.reshape(b_l, shard_h, geom.width)
     else:
-        planes = [p.reshape(b_l, nb_l * p.shape[1], p.shape[2]) for p in
-                  F.fused_decode_planes(flat, nseg, tables, op, bg,
-                                        exact=exact_idct, gate=gate)]
+        planes = [p.reshape(b_l, nb_l * p.shape[1], p.shape[2]) for p in out]
         # The rank's frames and their halos in one launch of the planes
         # epilogue E.
         out = C.finalize_planes(planes, geom.samplings, geom.width, shard_h,

@@ -6,7 +6,8 @@ tier, the default):
 
     prepare (host: header cache, native scan_info + destuff/split/pack into
     linear segment rows, device-budget check, stream constants)
-      -> one fused kernel (entropy -> IDCT -> output), chosen by the knobs:
+      -> decode_fused: the lane index L where a restart segment is long, then
+         one fused kernel (entropy -> IDCT -> output), chosen by the knobs:
          K2  fused_decode_rgba        default: float IDCT, nearest chroma
          K2x fused_decode_rgba_exact  exact_idct: the integer IDCT
          K3  fused_decode_planes      fancy_upsampling or planes_epilogue
@@ -51,7 +52,7 @@ from .ops import idct as D
 from .ops import int_idct as I
 from .ops import lanes as L
 from .profiling import (LANES_LAUNCHED, MCUS_LAUNCHED, PACK_PAD_BYTES,
-                        PINNED_READBACKS, SPLIT_SEGMENTS, count, stage_timer)
+                        PINNED_READBACKS, count, stage_timer)
 
 log = logging.getLogger("compeg_tpu_torch")
 
@@ -141,6 +142,37 @@ def decode_frame_device(rows: torch.Tensor, nseg: int,
     rgba = C.finalize_planes(planes, geom.samplings, geom.width, geom.height,
                              fancy=fancy, rgb=geom.rgb)
     return F.rgba_to_rgb(rgba)
+
+
+def count_launch(geom: FrameGeometry, nseg: int, frames: int,
+                 lanes: Optional[L.LaneTable] = None) -> None:
+    """Count a launch's lanes (one a segment, or those of ``lanes``) and
+    MCUs, ``frames`` frames of them."""
+    count(LANES_LAUNCHED, (nseg if lanes is None
+                           else lanes.count(geom.total_mcus)) * frames)
+    count(MCUS_LAUNCHED, geom.total_mcus * frames)
+
+
+def decode_fused(rows: torch.Tensor, nseg: int, tables: E.EntropyTables,
+                 op: torch.Tensor, geom: FrameGeometry, *, exact: bool,
+                 planes: bool, gate: Optional[F.BandGate] = None):
+    """A frame's ``[>= nseg, W]`` int32 rows, or a ``[B, R, W]`` batch, to
+    K3's u8 planes with ``planes``, else to packed RGBA by K2, or K2x with
+    ``exact``; ``gate`` makes the frames bands. A segment of more than
+    ``ops.lanes.split_mcus(frames)`` MCUs runs as lanes, whose table kernel
+    L makes; a banded launch takes none (there is no gated LANES launch).
+    Every fused launch but K2s's (``decode_scaled``: no lane form) is here."""
+    frames = rows.shape[0] if rows.dim() == 3 else 1
+    mcus = None if gate is not None else L.lane_length(
+        min(geom.ri, geom.total_mcus), nseg, frames)
+    lanes = None if mcus is None else L.lane_index(rows, nseg, tables, geom,
+                                                    mcus)
+    count_launch(geom, nseg, frames, lanes)
+    if planes:
+        return F.fused_decode_planes(rows, nseg, tables, op, geom, exact,
+                                     gate=gate, lanes=lanes)
+    decode = F.fused_decode_rgba_exact if exact else F.fused_decode_rgba
+    return decode(rows, nseg, tables, op, geom, gate, lanes)
 
 
 def to_rgb_tensor(out: torch.Tensor) -> torch.Tensor:
@@ -414,38 +446,21 @@ class Decoder:
             rows = torch.from_numpy(pf.rows[: pf.nseg].view(np.int32))
             return rows.to(self.device)
 
-    def _planes(self, pf: PreparedFrame, rows: torch.Tensor, **lanes):
-        return F.fused_decode_planes(rows, pf.nseg, pf.tables, pf.op,
-                                     pf.geom, exact=self.exact_idct, **lanes)
-
     def decode_rows(self, pf: PreparedFrame,
                     rows: torch.Tensor) -> torch.Tensor:
         """Decode segment rows that are on the device already, on the
         current stream: one frame's ``[>= nseg, W]`` int32 to packed RGBA
         ``[H, W]`` int32, or a ``[B, R, W]`` batch of frames that share
-        ``pf``'s geometry and tables to ``[B, H, W]`` in one launch. The
-        staged tier gives ``[H, W, 3]`` (``[B, H, W, 3]``) u8 instead, like
-        the JAX package's, frame by frame with one K1 launch each.
-
-        The fused tier decodes a restart segment of more than
-        ``ops.lanes.split_mcus(frames)`` MCUs (a frame with no restart
-        markers is one) as lanes of a few MCUs each: the lane index L finds
-        where each starts, on the device, and the fused kernel takes its
-        table."""
+        ``pf``'s geometry and tables to ``[B, H, W]`` in one launch
+        (:func:`decode_fused`, which cuts long restart segments into
+        lanes). The staged tier gives ``[H, W, 3]`` (``[B, H, W, 3]``) u8
+        instead, like the JAX package's, frame by frame with one K1 launch
+        each."""
         with stage_timer("launch"):  # the host's enqueueing of the work
             g = pf.geom
-            frames = rows.shape[0] if rows.dim() == 3 else 1
-            mcus = (L.lane_length(min(g.ri, g.total_mcus), pf.nseg, frames)
-                    if self.fused else None)
-            lanes = {}  # the fused wrappers' lanes= where there is a table
-            if mcus is not None:
-                lanes["lanes"] = L.lane_index(rows, pf.nseg, pf.tables, g,
-                                              mcus)
-                count(SPLIT_SEGMENTS, pf.nseg * frames)
-            count(LANES_LAUNCHED, -(-g.total_mcus // mcus) * frames
-                  if lanes else pf.nseg * frames)
-            count(MCUS_LAUNCHED, g.total_mcus * frames)
             if not self.fused:
+                count_launch(g, pf.nseg, len(rows) if rows.dim() == 3 else 1)
+
                 def staged(r):
                     return decode_frame_device(
                         r, pf.nseg, pf.tables, None, g, self.retained,
@@ -454,16 +469,16 @@ class Decoder:
                 if rows.dim() == 2:
                     return staged(rows)
                 return torch.stack([staged(r) for r in rows])
-            if self.fancy or self.planes_epilogue is True:
-                # K3, then the planes epilogue E: a batch's planes are one
-                # [B, Hc, Wc] tensor each and take one launch, whose vertical
-                # filter stays inside each frame.
-                return C.finalize_planes(self._planes(pf, rows, **lanes),
-                                         g.samplings, g.width, g.height,
-                                         fancy=self.fancy, rgb=g.rgb)
-            decode = (F.fused_decode_rgba_exact if self.exact_idct
-                      else F.fused_decode_rgba)
-            return decode(rows, pf.nseg, pf.tables, pf.op, g, **lanes)
+            planes = self.fancy or self.planes_epilogue is True
+            out = decode_fused(rows, pf.nseg, pf.tables, pf.op, g,
+                               exact=self.exact_idct, planes=planes)
+            if not planes:
+                return out
+            # K3, then the planes epilogue E: a batch's planes are one
+            # [B, Hc, Wc] tensor each and take one launch, whose vertical
+            # filter stays inside each frame.
+            return C.finalize_planes(out, g.samplings, g.width, g.height,
+                                     fancy=self.fancy, rgb=g.rgb)
 
     def decode_prepared(self, pf: PreparedFrame) -> torch.Tensor:
         """Asynchronous decode: packed RGBA ``[H, W]`` int32 on the device
@@ -509,15 +524,16 @@ class Decoder:
         colour conversion: a list of ``[Hc, Wc]`` u8 arrays in frame
         component order (Y, Cb, Cr; one for gray), ``Hc = ceil(H*v/max_v)``,
         ``Wc = ceil(W*h/max_h)`` (T.81 A.1.1). Kernel K3, with the integer
-        IDCT under ``exact_idct``."""
+        IDCT under ``exact_idct``, on lanes (:func:`decode_fused`)."""
         pf = self.prepare(data)
         g = pf.geom
         max_h = max(h for h, _ in g.samplings)
         max_v = max(v for _, v in g.samplings)
         return [
             to_host(p[: -(-g.height * v // max_v), : -(-g.width * h // max_h)])
-            for p, (h, v) in zip(self._planes(pf, self.upload(pf)),
-                                 g.samplings)
+            for p, (h, v) in zip(decode_fused(
+                self.upload(pf), pf.nseg, pf.tables, pf.op, g,
+                exact=self.exact_idct, planes=True), g.samplings)
         ]
 
     def decode_scaled(self, data, scale_blocks: int) -> np.ndarray:

@@ -67,17 +67,13 @@ _lock = threading.Lock()  # spans end on several threads at once
 # count of new page-locked blocks (:func:`host_allocs`) gives the cache's
 # hit share, 1 - new blocks / pinned readbacks.
 PINNED_READBACKS = "readback_pinned"
-# What ``Decoder.decode_rows`` asks of the card, counted once a call: the
-# decode lanes it launches (one a restart segment of each frame, or the
-# lanes a long segment is cut into) and the
-# MCUs those lanes decode between them. Their quotient is the serial depth
-# of one lane, in MCUs.
+# What a decode launch asks of the card, counted once a launch
+# (``pipeline.count_launch``): the decode lanes it launches (one a restart
+# segment of each frame, or the lanes a long segment is cut into) and the
+# MCUs of its frames. Their quotient is the serial depth of one lane, in
+# MCUs.
 LANES_LAUNCHED = "lanes_launched"
 MCUS_LAUNCHED = "mcus_launched"
-# The restart segments that ``Decoder.decode_rows`` cuts into lanes (a lane
-# table, ops/lanes.py), counted once a call: how often the route engages.
-# Its lanes are what LANES_LAUNCHED counts then.
-SPLIT_SEGMENTS = "split_segments"
 # The bytes of zero rows that ``Decoder.prepare`` packs past a frame's last
 # segment (its buffer holds ``row_capacity(nseg)`` rows), counted once a
 # prepare.

@@ -9,10 +9,11 @@ three passes (guess, repair and scan, index) gives that table on every frame,
 ``zrl_compat``, a truncated and a random scan included, at the kernel's
 subsequence length and at short ones where the guesses fail; decoding lane
 by lane from the table gives the whole segment's coefficients, planes and
-the benchmark reference's pixels; ``Decoder.decode_rows`` routes a segment
-into lanes by its length alone. On the card (skipped without one), kernel L
-gives the plain table bit for bit, and K2, K2x and K3 on lanes give the
-pixels of the one-lane launch.
+the benchmark reference's pixels; ``Decoder.decode_rows`` and
+``Decoder.decode_ycbcr`` route a segment into lanes by its length alone. On
+the card (skipped without one), kernel L gives the plain table bit for bit,
+K2, K2x and K3 on lanes give the pixels of the one-lane launch, and both
+entry points give the benchmark reference's pixels and planes.
 
 This file imports neither jax nor ``compeg_tpu``: on the card, run it alone
 (``python -m pytest tests/test_torch_lanes.py --noconftest``)."""
@@ -298,7 +299,9 @@ def test_a_split_decode_equals_the_reference(name, mode):
     dec = Decoder(device="cpu", exact_idct=True, fancy_upsampling=fancy)
     P.reset_stats()
     got = dec.decode(data)
-    assert P.get_counts()[P.SPLIT_SEGMENTS] == dec.prepare(data).nseg
+    c, mcus = P.get_counts(), dec.prepare(data).geom.total_mcus
+    assert c[P.MCUS_LAUNCHED] == mcus  # every segment on lanes
+    assert c[P.LANES_LAUNCHED] == -(-mcus // LN.LANE_MCUS)
     ref = R.decode(data, *mode)
     assert got.shape == ref.shape
     assert int((got != ref).sum()) == 0
@@ -333,9 +336,15 @@ def counts():
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
-@pytest.mark.parametrize("frames", [1, 3])
-def test_decode_rows_routes_by_the_segments_length(route, frames, counts,
-                                                   monkeypatch):
+@pytest.mark.parametrize("frames, entry", [(1, "decode_rows"),
+                                           (3, "decode_rows"),
+                                           (1, "decode_ycbcr")],
+                         ids=["1", "3", "decode_ycbcr"])
+def test_decode_rows_routes_by_the_segments_length(route, frames, entry,
+                                                   counts, monkeypatch):
+    """``decode_rows`` of resident rows and ``decode_ycbcr`` of the bytes
+    take one route: a lane table where a segment is longer than T, equal
+    to one lane a segment."""
     ri = ROUTES[route]
     split = min(ri or 128, 128) > LN.split_mcus(frames)
     assert split == (route in ("ri 120", "no DRI")) or route == "ri 16"
@@ -345,13 +354,19 @@ def test_decode_rows_routes_by_the_segments_length(route, frames, counts,
     pf = dec.prepare(data)
     one = torch.from_numpy(pf.rows[:pf.nseg].view(np.int32))
     rows = one if frames == 1 else torch.stack([one] * frames)
+
+    def decode():
+        if entry == "decode_ycbcr":
+            return [torch.from_numpy(p) for p in dec.decode_ycbcr(data)]
+        return [dec.decode_rows(pf, rows)]
+
     made = []
     index = LN.lane_index
     monkeypatch.setattr(LN, "lane_index",
                         lambda *a: made.append(a[-1]) or index(*a))
     before = dict(_build.LAUNCHES)
     P.reset_stats()
-    out = dec.decode_rows(pf, rows)
+    out = decode()
     c = P.get_counts()
     mcus = pf.geom.total_mcus
     assert _build.LAUNCHES == before  # the CPU launches no kernel
@@ -360,15 +375,16 @@ def test_decode_rows_routes_by_the_segments_length(route, frames, counts,
         L = made[0]
         assert made == [L] and L == LN.lane_length(min(ri or mcus, mcus),
                                                    pf.nseg, frames)
-        assert c[P.SPLIT_SEGMENTS] == pf.nseg * frames
         assert c[P.LANES_LAUNCHED] == -(-mcus // L) * frames
         assert mcus % L or c[P.MCUS_LAUNCHED] / c[P.LANES_LAUNCHED] == L
     else:
-        assert not made and P.SPLIT_SEGMENTS not in c
+        assert not made
         assert c[P.LANES_LAUNCHED] == pf.nseg * frames
     monkeypatch.setattr(LN, "SPLIT_MCUS", ((1, 10**9),))  # one lane
-    whole = dec.decode_rows(pf, rows)
-    assert torch.equal(out, whole)
+    whole = decode()
+    assert len(made) == split  # the one-lane decode made no table
+    assert len(out) == len(whole)
+    assert all(torch.equal(a, b) for a, b in zip(out, whole))
 
 
 def test_lane_length_follows_the_segment_alone():
@@ -502,7 +518,8 @@ def test_card_lane_launch_equals_the_one_lane_launch(cuda, name, kernel, L):
 def test_card_decoder_on_cv1080_frames_equals_the_reference(cuda):
     """Two 1080p restart-less frames as a resident batch through
     ``decode_rows``: one L and one K3 and one E launch, pixels equal to the
-    benchmark reference's."""
+    benchmark reference's; and each through ``decode_ycbcr``: one L and one
+    K3 launch, planes equal to the reference's integer IDCT planes."""
     cfg = config()
     dec = Decoder(device=cuda, **cfg["decoder"])
     frames, pf, rows = nodri_batch(dec, 2)
@@ -517,3 +534,14 @@ def test_card_decoder_on_cv1080_frames_equals_the_reference(cuda):
                        lanes=hints)
         got = F.rgba_to_rgb(out[b]).cpu().numpy()
         assert int((got != ref).sum()) == 0
+    for d, hints in frames:
+        f = R.parse(d)
+        quant = np.stack([f.qtables[f.comps[c][2]] for c in f.du_comps])
+        want = R.planes(f, R.idct_int(R.entropy_decode(f, hints), quant))
+        before = dict(_build.LAUNCHES)
+        got = dec.decode_ycbcr(d)
+        assert _build.LAUNCHES == dict(before, lanes=before["lanes"] + 1,
+                                       planes=before["planes"] + 1)
+        assert len(got) == len(want) == 3
+        for p, w in zip(got, want):
+            assert np.array_equal(p, w[:p.shape[0], :p.shape[1]])

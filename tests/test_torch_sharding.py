@@ -5,7 +5,9 @@ LocalMesh) the banded decode must equal the port's unbanded decode byte for
 byte in every mode and cut — the cases of tests/test_sharding.py:53-198 at
 64 x 64 or smaller: nearest, exact, fancy, fancy + exact, 4:2:0, an odd
 height, empty trailing bands, several bands per shard, and the Ri fallback
-cut (Ri not dividing the MCU-row width, a short final interval). The
+cut (Ri not dividing the MCU-row width, a short final interval), and
+segments longer than the lanes' T, which the banded decode runs one lane
+each, building no lane table. The
 halo-aware fancy filter is held to the unsplit one with halos taken by hand.
 Two comparisons with the JAX package's decode_batch_sharded on the virtual
 CPU mesh of tests/conftest.py (interpret mode), one two-process gloo job
@@ -31,6 +33,7 @@ import compeg_tpu_torch as T  # noqa: E402
 from compeg_tpu_torch.ops import color as C  # noqa: E402
 from compeg_tpu_torch.ops import entropy as E  # noqa: E402
 from compeg_tpu_torch.ops import fused as F  # noqa: E402
+from compeg_tpu_torch.ops import lanes as LN  # noqa: E402
 from compeg_tpu_torch.parallel import multihost as MH  # noqa: E402
 from compeg_tpu_torch.parallel import sharding as SH  # noqa: E402
 
@@ -43,10 +46,16 @@ def rgb_of(out: torch.Tensor) -> np.ndarray:
 
 def banded(data, n_bands, batch=2, **knobs):
     """The banded decode of ``batch`` copies of ``data`` on the 1 x 1 mesh,
-    as RGB, beside the port's unbanded Decoder with the same knobs."""
-    out = SH.decode_frames_sharded(
-        [data] * batch, SH.make_mesh(1, 1, "cpu"), n_bands,
-        decoder=T.BatchDecoder(device="cpu", **knobs))
+    as RGB, beside the port's unbanded Decoder with the same knobs. The
+    banded decode builds no lane table, however long its segments."""
+    made = []
+    index = LN.lane_index
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(LN, "lane_index", lambda *a: made.append(a) or index(*a))
+        out = SH.decode_frames_sharded(
+            [data] * batch, SH.make_mesh(1, 1, "cpu"), n_bands,
+            decoder=T.BatchDecoder(device="cpu", **knobs))
+    assert not made
     return rgb_of(out), T.Decoder(device="cpu", **knobs).decode(data)
 
 
@@ -72,6 +81,10 @@ CASES = {
                                 {"fancy_upsampling": True}),
     "ri=5 aligned": (56, 64, "444", 5, 2, "gradient", {}),
     "gray, ri=3": (40, 24, "gray", 3, 2, "noise", {}),
+    # segments of 32 MCUs, which the unbanded decode runs as lanes
+    "ri=32, segments past T": (128, 128, "420", 32, 2, "noise",
+                               {"fancy_upsampling": True,
+                                "exact_idct": True}),
 }
 
 
@@ -80,6 +93,8 @@ def test_banded_equals_unbanded(name, test_image):
     h, w, sampling, ri, n_bands, kind, knobs = CASES[name]
     data = encoder.encode(test_image(h, w, kind), sampling=sampling,
                           quality=85, restart_interval_mcus=ri)
+    assert (ri > LN.split_mcus(2 * n_bands)) == (name == "ri=32, "
+                                                 "segments past T")
     got, want = banded(data, n_bands, **knobs)
     assert got.shape == (2, h, w, 3)
     for frame in got:
